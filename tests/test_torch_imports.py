@@ -1,0 +1,74 @@
+"""The port stands alone: ``ray_tpu_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor anything of ``ray_tpu``, and the port lints clean."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, dirnames, files in os.walk(os.path.join(REPO,
+                                                         "ray_tpu_torch")):
+        dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
+                                                        "build")]
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "optax", "orbax") \
+        or top == "ray_tpu"
+
+
+def test_port_sources_exist():
+    srcs = _port_sources()
+    assert os.path.exists(srcs[0]), "chip_smoke.py is missing"
+    assert len(srcs) >= 10
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_and_reference_unloaded():
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch, ray_tpu_torch.llm.engine, "
+        "ray_tpu_torch.models.convert, ray_tpu_torch.ops.cuda._build, "
+        "ray_tpu_torch.ops.cuda.flash_attention\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ray_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_lints_clean():
+    from ray_tpu._private.analysis.core import run_lint
+
+    result = run_lint(REPO, paths=["ray_tpu_torch"])
+    assert result.files_scanned >= 10
+    assert not result.findings, "\n".join(f.render()
+                                          for f in result.findings)
