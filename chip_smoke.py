@@ -11,15 +11,23 @@ Phases, each printing one JSON line:
    and nvcc versions, and the build of every CUDA kernel from the
    repository's own sources (all nvcc processes started together).
 2. ``kernel``: each kernel against its plain PyTorch version on the card,
-   one line per case, with the kernel's, the plain version's and one
-   library call's time, and the least time the card could take.
+   per case one line for K1 (the flash forward) and one for K2/K3 (its
+   backward), with the kernels', the plain version's and one library
+   call's time, and the least time the card could take.
 3. ``small_reference``: small fp32 models on the card against a plain
-   reference: the forward through K1 against the reference attention, and
-   greedy ``LLMEngine`` output against full-recompute argmax.
+   reference: the forward through K1 against the reference attention,
+   greedy ``LLMEngine`` output against full-recompute argmax, and three
+   train steps (K1/K2/K3 under ``save_attn``) against the same steps
+   through the plain versions on the CPU.
 4. ``forward``: ``llama_apply`` at full Llama-2-7B width and depth (bf16
    weights from a seed, b=1, s=2048); K1 must launch once per layer.
 5. ``serve``: ``LLMEngine`` on the same model answers five ~200-token
    requests, two sharing a 64-token prefix (greedy, 32 new tokens).
+6. ``train``: the 7B serving weights are freed, then ``make_llama_trainer``
+   at Llama-2-7B width cut to 16 layers (fp32 params and AdamW state,
+   bf16 activations, ``save_attn``) takes two warm-up and three timed
+   steps on b=1, s=2048 random tokens; K1, K2 and K3 must each launch
+   once per layer per step, and loss and grad norm must be finite.
 
 Then the ``kernels`` line (every ported kernel with its launches on the
 main path), the ``nvidia-smi`` line and, last, the result line
@@ -31,7 +39,9 @@ CUDA, or without the package beside it, the script exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,6 +52,10 @@ SERVE_SLOTS = 4
 SERVE_MAX_LEN = 1024
 SERVE_BLOCK = 16
 SERVE_NEW_TOKENS = 32
+TRAIN_LAYERS = 16
+TRAIN_STEPS = 3
+DEPTH_CUT = ("32 → 16 layers: fp32 params + AdamW state of the full depth "
+             "is ~108 GB")
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 on the CUDA cores, HBM3 bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -58,6 +72,22 @@ K1_CASES = [
     ("fp32", 1, 384, 8, 2, 128, "float32", True, 1e-4, 1e-4),
     ("fp32_d64_ragged", 1, 333, 4, 4, 64, "float32", True, 1e-4, 1e-4),
 ]
+
+# K2/K3 against their plain version, per output (dq, dk, dv): elementwise
+# |kernel - plain| <= atol + rtol |plain|, and over the whole output
+# ||kernel - plain|| <= rel_l2 ||plain||.  bf16: both sides round P, dS and
+# the outputs to bf16 from fp32 sums taken in another order, so an element
+# that differs is off by about one bf16 ulp (rtol 2^-7); atol is twice the
+# largest reading of the bf16 cases on the H100 (dq 9.8e-4, dk 3.9e-3,
+# dv 7.8e-3).  Such scattered ulps keep the relative L2 error far below
+# 1e-3, while a systematic error does not: a scale off by 1% reads 1e-2.
+# fp32: atol about 4x the readings (dq 3.6e-7, dk 5.7e-6, dv 1.1e-5).
+BWD_TOL = {
+    "bfloat16": {"atol": (2e-3, 8e-3, 1.6e-2), "rtol": 2 ** -7,
+                 "rel_l2": 1e-3},
+    "float32": {"atol": (2e-6, 2.5e-5, 5e-5), "rtol": 1e-5,
+                "rel_l2": 1e-5},
+}
 
 
 def emit(obj) -> None:
@@ -86,20 +116,36 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, sq, sk, h, kv_h, d, dtype, causal):
-    """Least time for the attention function: each input read once, each
-    output written once, against 4*d FLOPs per visible (q, k) pair."""
+def attention_bound(b, sq, sk, h, kv_h, d, dtype, causal, flops_per_d=4,
+                    q_sized=2, kv_sized=2, fp32_rows=1):
+    """Least time for an attention kernel: each input read once, each
+    output written once, against ``flops_per_d * d`` FLOPs per visible
+    (q, k) pair.  ``q_sized`` / ``kv_sized`` count the [b, s, h, d] /
+    [b, s, kv_h, d] tensors it reads or writes, ``fp32_rows`` the fp32
+    [b, h, s] ones (lse, D).  K1: 4, 2 (q, O), 2 (k, v), 1 (lse); K2: 6, 3
+    (q, dO, dQ), 2, 2 (lse, D); K3: 8, 2 (q, dO), 4 (k, v, dK, dV), 2."""
     esize = 2 if dtype == "bfloat16" else 4
     if causal:
         pairs = sum(min(i + 1, sk) for i in range(sq))
     else:
         pairs = sq * sk
-    flops = 4.0 * d * pairs * b * h
-    nbytes = esize * (2 * b * sq * h * d + 2 * b * sk * kv_h * d) \
-        + 4 * b * h * sq
+    flops = float(flops_per_d) * d * pairs * b * h
+    nbytes = esize * (q_sized * b * sq * h * d + kv_sized * b * sk * kv_h * d) \
+        + 4 * fp32_rows * b * h * sq
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def train_flops_per_step(cfg, batch, seq) -> float:
+    """The FLOPs the JAX bench counts per train step (``bench.py``,
+    ``train_flops_per_step``): 6*N per token for the dense matmuls (fwd 2N
+    + bwd 4N) plus causal attention, 12*b*s^2*h*hd per layer * 0.5."""
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.hidden_size
+    dense = 6 * n_matmul * batch * seq
+    hd = cfg.resolved_head_dim
+    attn = 12 * cfg.num_layers * batch * seq * seq * cfg.num_heads * hd * 0.5
+    return dense + attn
 
 
 def phase_env():
@@ -168,10 +214,88 @@ def phase_kernels():
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
         emit(row)
-        results[name] = row
-        del q, k, v, qt, kt, vt, out, lse, pout, plse, err_o
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+        bwd = phase_kernels_bwd(q, k, v, out, lse, do, causal,
+                                BWD_TOL[dtype])
+        bwd.update({"phase": "kernel", "kernel": "K2 flash_bwd_dq + "
+                    "K3 flash_bwd_dkv", "case": name})
+        for kname, flops_per_d, q_sized, kv_sized in (("k2", 6, 3, 2),
+                                                      ("k3", 8, 2, 4)):
+            bwd[f"{kname}_bound_ms"], bwd[f"{kname}_bound_by"] = \
+                attention_bound(b, s, s, h, kv_h, d, dtype, causal,
+                                flops_per_d, q_sized, kv_sized, 2)
+        emit(bwd)
+        results[name] = {"k1": row, "bwd": bwd}
+        del q, k, v, qt, kt, vt, out, lse, pout, plse, err_o, do
         torch.cuda.empty_cache()
     return results
+
+
+def phase_kernels_bwd(q, k, v, out, lse, do, causal, tol):
+    """K2 and K3 (through ``flash_attention_bwd``) against
+    ``flash_attention_bwd_plain`` on the same residuals, within ``tol``
+    (an entry of ``BWD_TOL``) on dq, dk and dv; each kernel's device time
+    by name (torch.profiler), the wrapper's (D = rowsum(dO * O) and both
+    launches), the plain version's, and SDPA's backward (forward+backward
+    minus forward, flash backend where it takes the inputs) as the
+    library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from ray_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    def kernels():
+        return flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+
+    got = kernels()
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    row, faults = {"tolerance": tol}, []
+    for name, atol, a, w in zip(("dq", "dk", "dv"), tol["atol"], got,
+                                want):
+        a, w = a.float(), w.float()
+        err = (a - w).abs()
+        rel_l2 = float(torch.linalg.vector_norm(a - w)
+                       / torch.linalg.vector_norm(w))
+        n_bad = int((err > atol + tol["rtol"] * w.abs()).sum())
+        row.update({f"{name}_max_abs_err": float(err.max()),
+                    f"{name}_elements_over": n_bad,
+                    f"{name}_rel_l2_err": rel_l2,
+                    f"{name}_mean_abs": float(w.abs().mean()),
+                    f"{name}_max_abs": float(w.abs().max())})
+        if n_bad or not rel_l2 <= tol["rel_l2"] \
+                or not bool(torch.isfinite(a).all()):
+            faults.append(name)
+    if faults:
+        raise AssertionError(f"K2/K3: {', '.join(faults)} disagree with the "
+                             f"plain version: {json.dumps(row)}")
+    times = device_times(kernels, iters=5)
+    for kname, kernel in (("k2", "flash_bwd_dq_kernel"),
+                          ("k3", "flash_bwd_dkv_kernel")):
+        found = [ms for n, ms in times.items() if kernel in n]
+        if len(found) != 1:
+            raise AssertionError(f"no single device time for {kernel} in "
+                                 f"the profile: {sorted(times)}")
+        row[f"{kname}_ms"] = found[0]
+    row["bwd_ms"] = cuda_ms(kernels)
+    row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal=causal), 5)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    gqa = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
+
+    def library_fwd():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal, **gqa)
+
+    row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        library_fwd(), (qt, kt, vt), dot)) - cuda_ms(library_fwd)
+    return row
 
 
 def phase_small_reference(device="cuda"):
@@ -215,7 +339,78 @@ def phase_small_reference(device="cuda"):
             seq.append(tok)
     eng.blocks.assert_integrity()
     return {"forward_k1_vs_ref_max_abs": fwd_err,
-            "engine_tokens_checked": sum(len(o.token_ids) for o in outs)}
+            "engine_tokens_checked": sum(len(o.token_ids) for o in outs),
+            **small_train_reference(device)}
+
+
+def small_train_reference(device="cuda", steps=3):
+    """Three fp32 train steps of a small model (head_dim 64, s=300, flash
+    attention under ``save_attn``) on ``device`` and through the plain
+    versions on the CPU, from the same weights and tokens.  Loss to rtol
+    1e-5 and grad norm to 1e-4 (fp32 sums in another order).  Params: the
+    difference of the two updates has at most 1e-3 of the update's L2
+    norm, and no element differs by more than Adam's bound of one step
+    each way (2 * the sum of the learning rates): Adam moves each element
+    by about lr whatever its grad, so an element whose grad is about eps
+    (1e-8) can turn on fp32 summation noise alone.  On the card K1, K2
+    and K3 must each launch once per layer per step."""
+    import copy
+
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               make_llama_trainer,
+                                               tree_leaves)
+    from ray_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
+                                                        flash_attention_fwd)
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                           max_seq_len=512, attention_impl="flash")
+    params = llama_init(cfg, seed=5, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 301),
+                           generator=torch.Generator().manual_seed(6))
+    opt = default_optimizer(lr=1e-3, warmup=1, decay_steps=10)
+    runs = {}
+    for dev in (device, "cpu"):
+        tr = make_llama_trainer(cfg, optimizer=opt, device=dev)
+        state = tr.init_state(params=copy.deepcopy(params))
+        counts = (flash_attention_fwd.launches,
+                  flash_attention_bwd.dq_launches,
+                  flash_attention_bwd.dkv_launches)
+        metrics = []
+        for _ in range(steps):
+            state, m = tr.step(state, {"tokens": tokens})
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        launched = [now - before for now, before in zip(
+            (flash_attention_fwd.launches, flash_attention_bwd.dq_launches,
+             flash_attention_bwd.dkv_launches), counts)]
+        runs[dev] = (metrics, [t.detach().cpu() for t in
+                               tree_leaves(state["params"])], launched)
+    (got, got_p, launched), (want, want_p, _) = runs[device], runs["cpu"]
+    loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, want))
+    norm_err = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, want))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(got_p, want_p))
+    update_err = math.sqrt(sum(float((a - b).square().sum())
+                               for a, b in zip(got_p, want_p))) / math.sqrt(
+        sum(float((b - p0).square().sum()) for b, p0 in
+            zip(want_p, tree_leaves(params))))
+    one_step_each_way = 2 * sum(opt.learning_rate(c) for c in range(steps))
+    if not (loss_err <= 1e-5 and norm_err <= 1e-4 and update_err <= 1e-3
+            and param_err <= one_step_each_way):
+        raise AssertionError(
+            f"train steps on {device} vs the plain path on the CPU: loss "
+            f"rel {loss_err}, grad norm rel {norm_err}, update rel L2 "
+            f"{update_err}, params max |d| {param_err} (bound "
+            f"{one_step_each_way})")
+    if device == "cuda" and launched != [steps * cfg.num_layers] * 3:
+        raise AssertionError(f"K1/K2/K3 launched {launched} times in "
+                             f"{steps} steps of {cfg.num_layers} layers")
+    return {"train_losses_grad_norms": got,
+            "train_loss_rel_err": loss_err, "train_norm_rel_err": norm_err,
+            "train_params_max_abs_err": param_err,
+            "train_update_rel_l2_err": update_err,
+            "train_k1_k2_k3_launches": launched}
 
 
 def phase_forward(cfg, params, device="cuda"):
@@ -252,7 +447,8 @@ def phase_forward(cfg, params, device="cuda"):
     f32 = llama_apply(params, tokens,
                       dataclasses.replace(cfg, attention_impl="ref",
                                           dtype=torch.float32))
-    busy_ms, top = device_profile(lambda: llama_apply(params, tokens, cfg))
+    busy_ms, top = rank_kernels(device_times(
+        lambda: llama_apply(params, tokens, cfg)))
     err_k1 = float((logits - f32).abs().mean())
     err_ref = float((ref - f32).abs().mean())
     # the K1 path must be as close to fp32 as the reference path is: both
@@ -322,28 +518,38 @@ def phase_serve(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
             "decode_profile": profile_decode_window(eng, cfg.vocab_size)}
 
 
-def device_profile(fn):
-    """Kernel time of one call of ``fn`` under ``torch.profiler``:
-    ``(busy_ms, top kernels [[name, ms], ...])``, or "not measured" when
-    the profiler records no device activity."""
+def device_times(fn, iters: int = 1):
+    """Device time per call of ``fn`` by kernel name, over ``iters`` calls
+    under ``torch.profiler`` (after one warm-up call when ``iters > 1``);
+    empty when the profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if iters > 1:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+                + e.time_range.elapsed_us() / 1e3 / iters
+    return by_name
+
+
+def rank_kernels(by_name):
+    """Device time by kernel name (``device_times``) as ``(busy_ms, the
+    eight longest kernels [[name, ms], ...])``, or "not measured" when the
+    profiler recorded no device activity."""
     if not by_name:
         return "not measured", []
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return sum(by_name.values()), [[n[:80], ms] for n, ms in top]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return sum(by_name.values()), [[n[:80], ms] for n, ms in ranked]
 
 
 def profile_decode_window(eng, vocab_size):
@@ -361,7 +567,7 @@ def profile_decode_window(eng, vocab_size):
     for _ in range(eng.B):
         eng.submit(rng.integers(3, vocab_size, size=100).tolist(), sp)
     eng.step()  # admissions and the first window
-    busy_ms, top = device_profile(eng.step)
+    busy_ms, top = rank_kernels(device_times(eng.step))
     t0 = time.perf_counter()
     eng.step()
     torch.cuda.synchronize()
@@ -371,6 +577,79 @@ def profile_decode_window(eng, vocab_size):
     return {"window_steps": eng.K, "slots": eng.B,
             "unprofiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms if top else "not measured",
+            "top_kernels_ms": top}
+
+
+def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ):
+    """``make_llama_trainer(cfg)`` with ``default_optimizer(warmup=1,
+    decay_steps=1000)`` (the JAX bench's) on b=1 random tokens of length
+    ``seq + 1``: two warm-up steps, then ``steps`` timed steps ended by
+    ``synchronize()``, then one step under the profiler (device time by
+    kernel and by class) and one optimizer update alone.  Returns step
+    time, tokens/s, MFU against the bf16 peak, peak memory over the timed
+    steps and the K1/K2/K3 launches of the timed steps."""
+    import torch
+
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               make_llama_trainer,
+                                               tree_leaves)
+    from ray_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
+                                                        flash_attention_fwd)
+
+    tr = make_llama_trainer(cfg, optimizer=default_optimizer(
+        warmup=1, decay_steps=1000), device=device)
+    t0 = time.perf_counter()
+    state = tr.init_state(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq + 1),
+                                     generator=gen, device=device)}
+    losses = []
+    for _ in range(2):  # warm-up: library handles, allocator, kernel build
+        state, m = tr.step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.dq_launches = 0
+    flash_attention_bwd.dkv_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = tr.step(state, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = {"K1": flash_attention_fwd.launches,
+                "K2": flash_attention_bwd.dq_launches,
+                "K3": flash_attention_bwd.dkv_launches}
+    losses.append(float(m["loss"]))
+    grad_norm = float(m["grad_norm"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_name = device_times(lambda: tr.step(state, batch))
+    busy_ms, top = rank_kernels(by_name)
+    by_class = {}
+    for n, ms in by_name.items():
+        c = ("attention kernels (K1-K3)" if "flash_" in n else
+             "matmul" if any(x in n for x in ("gemm", "nvjet", "cutlass",
+                                               "xmma", "sm90_")) else
+             "elementwise, copy and reduction")
+        by_class[c] = by_class.get(c, 0.0) + ms
+    # the optimizer alone: one update of the real state with zero grads
+    leaves = tree_leaves(state["params"])
+    grads = [torch.zeros_like(p) for p in leaves]
+    optimizer_ms = cuda_ms(lambda: tr.optimizer.update(
+        grads, state["opt_state"], leaves), 2)
+    flops = train_flops_per_step(cfg, 1, seq)
+    return {"step_ms": 1e3 * step_s, "tokens_per_s": seq / step_s,
+            "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+            "train_flops_per_step": flops, "peak_memory_gb": peak_gb,
+            "init_s": init_s, "timed_steps": steps, "launches": launches,
+            "launches_per_step": {n: c / steps for n, c in launches.items()},
+            "losses": losses, "grad_norm": grad_norm,
+            "device_busy_ms": busy_ms,
+            "idle_share": (1 - busy_ms / (1e3 * step_s) if top
+                           else "not measured"),
+            "device_ms_by_class": by_class, "optimizer_ms": optimizer_ms,
             "top_kernels_ms": top}
 
 
@@ -409,17 +688,56 @@ def main() -> int:
           "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, **serve,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
 
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cfg = dataclasses.replace(
+        LlamaConfig.llama2_7b(), num_layers=TRAIN_LAYERS,
+        param_dtype=torch.float32, dtype=torch.bfloat16,
+        remat_policy="save_attn")
+    train = phase_train(train_cfg)
+    emit({"phase": "train", "model": "llama2_7b", "layers": TRAIN_LAYERS,
+          "depth_cut": DEPTH_CUT, "batch": 1, "seq": SEQ,
+          "remat_policy": train_cfg.remat_policy,
+          "params_b": train_cfg.num_params() / 1e9, **train})
+    per_step = train["launches_per_step"]
+    if per_step != {"K1": TRAIN_LAYERS, "K2": TRAIN_LAYERS,
+                    "K3": TRAIN_LAYERS}:
+        raise AssertionError(f"launches per train step {per_step}, expected "
+                             f"{TRAIN_LAYERS} each (save_attn keeps K1's "
+                             "outputs, so the backward must not replay it)")
+    if not all(math.isfinite(x) for x in [*train["losses"],
+                                           train["grad_norm"]]):
+        raise AssertionError(f"train: losses {train['losses']}, grad norm "
+                             f"{train['grad_norm']}")
+
     main_case = k1["main_path"]
-    emit({"kernels": [{
-        "name": "K1 flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/ops/cuda/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/pallas/flash_attention.py:45",
-        "launches": fwd["k1_launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+    row1, bwd = main_case["k1"], main_case["bwd"]
+    source = "ray_tpu_torch/ops/cuda/csrc/"
+    replaces = "ray_tpu/ops/pallas/flash_attention.py:"
+    emit({"kernels": [
+        {"name": "K1 flash_fwd", "route": "cuda",
+         "source": source + "flash_fwd.cu", "replaces": replaces + "45",
+         "launches": train["launches"]["K1"],
+         "launches_by_path": {"forward": fwd["k1_launches"],
+                              "serve": serve["k1_launches"],
+                              "train": train["launches"]["K1"]},
+         "max_abs_err": row1["max_abs_err"], "ms": row1["ms"],
+         "plain_ms": row1["plain_ms"], "bound_ms": row1["bound_ms"],
+         "bound_by": row1["bound_by"], "library_ms": row1["library_ms"]},
+        {"name": "K2 flash_bwd_dq", "route": "cuda",
+         "source": source + "flash_bwd.cu", "replaces": replaces + "195",
+         "launches": train["launches"]["K2"],
+         "max_abs_err": bwd["dq_max_abs_err"], "ms": bwd["k2_ms"],
+         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["k2_bound_ms"],
+         "bound_by": bwd["k2_bound_by"], "library_ms": bwd["library_ms"]},
+        {"name": "K3 flash_bwd_dkv", "route": "cuda",
+         "source": source + "flash_bwd.cu", "replaces": replaces + "232",
+         "launches": train["launches"]["K3"],
+         "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
+         "ms": bwd["k3_ms"], "plain_ms": bwd["plain_ms"],
+         "bound_ms": bwd["k3_bound_ms"], "bound_by": bwd["k3_bound_by"],
+         "library_ms": bwd["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,21 +5,31 @@ in the JAX pytree's layout (``x @ W`` weights, layers stacked ``[L, ...]``)
 so weights convert one to one (``models/convert.py``) and the tests
 compare like with like.  Each weight is cast to ``cfg.dtype`` per matmul;
 logits are fp32.  Attention dispatches through ``ops.attention``: the
-hand-written CUDA flash kernel (K1) for CUDA inputs with ``seq >= 256``.
+hand-written CUDA flash kernels (K1 forward, K2/K3 backward) for CUDA
+inputs with ``seq >= 256``.
 
-Forward only: the backward, remat policies and the trainer come with the
-training slice; the mesh and pipeline paths with the parallel slice.
+``llama_apply`` is differentiable, as the JAX function is.  When autograd
+records (grad mode on and params that require grad) each decoder layer
+runs under the config's remat policy; serving, with frozen params or
+under ``torch.no_grad()``, builds no graph.  ``llama_loss`` is the
+training loss.
+The mesh and pipeline paths come with the parallel slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.ops.attention import dot_product_attention
+# registers the op ray_tpu_torch::flash_attention that save_attn keeps
+from ray_tpu_torch.ops.cuda import flash_attention as _flash  # noqa: F401
 from ray_tpu_torch.ops.layers import (apply_rope, rms_norm, rope_frequencies,
                                       swiglu)
 
@@ -37,6 +47,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # under autograd: False (autograd keeps every activation), or a policy.
+    # "full": each layer keeps only its input and is replayed in the
+    # backward; "save_attn": also keeps the flash op's outputs (out, lse),
+    # so the backward replays the layer without K1.
+    remat: bool = True
+    remat_policy: str = "save_attn"
     # the JAX pytree's layer layout: stacked [L, ...] (True) or a list of
     # per-layer dicts (False).  Only the converter reads it: the port
     # always holds stacked layers.
@@ -139,11 +155,13 @@ def llama_init(cfg: LlamaConfig, seed: int = 0,
 
 
 def stacked_layers(params) -> Iterator[Tuple[int, Dict[str, torch.Tensor]]]:
-    """Iterate stacked layer params ``[L, ...]`` as per-layer views."""
-    layers = params["layers"]
-    L = next(iter(layers.values())).shape[0]
+    """Iterate stacked layer params ``[L, ...]`` as per-layer views.  One
+    ``unbind`` per leaf: under autograd its backward is one ``stack``,
+    where L ``select``s would each write a full ``[L, ...]`` grad."""
+    views = {k: v.unbind(0) for k, v in params["layers"].items()}
+    L = len(next(iter(views.values())))
     for i in range(L):
-        yield i, {k: v[i] for k, v in layers.items()}
+        yield i, {k: v[i] for k, v in views.items()}
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: LlamaConfig):
@@ -185,11 +203,44 @@ def _decoder_layer(x, lp, *, cfg: LlamaConfig, cos, sin):
     return x + act @ lp["w_down"].to(dt)
 
 
-@torch.no_grad()
+def _save_flash_outputs(ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy of ``save_attn``: keep the flash op's
+    ``(out, lse)`` (JAX's ``attn_out``/``flash_out``/``flash_lse``) and
+    recompute everything else."""
+    if func is torch.ops.ray_tpu_torch.flash_attention.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def layer_remat(cfg: LlamaConfig) -> Optional[Callable]:
+    """How a decoder layer runs under autograd: ``None`` when remat is off,
+    else ``remat(layer_fn, x, lp)`` under the config's policy (JAX's
+    ``jax.checkpoint`` policies in ``llama_apply``).  Raises for a policy
+    this port does not have yet."""
+    if not cfg.remat:
+        return None
+    if cfg.remat_policy == "full":
+        return functools.partial(checkpoint, use_reentrant=False)
+    if cfg.remat_policy == "save_attn":
+        return functools.partial(
+            checkpoint, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_flash_outputs))
+    if cfg.remat_policy in ("save_attn_mlp", "save_dots"):
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} comes with a later slice of "
+            "the port (ROADMAP Queue 1, item 2); this one has False, 'full' "
+            "and 'save_attn'")
+    raise ValueError(
+        f"remat_policy must be 'full', 'save_attn', 'save_attn_mlp' or "
+        f"'save_dots', got {cfg.remat_policy!r}")
+
+
 def llama_apply(params: Dict[str, Any], tokens: torch.Tensor,
                 cfg: LlamaConfig, *, mesh=None) -> torch.Tensor:
     """Forward pass: tokens [b, s] int → logits [b, s, vocab] (fp32), on
-    the device the params and tokens live on."""
+    the device the params and tokens live on.  When autograd is on and the
+    params require grad, each decoder layer runs under ``layer_remat``."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded llama_apply comes with the parallel slice of the "
@@ -198,6 +249,27 @@ def llama_apply(params: Dict[str, Any], tokens: torch.Tensor,
     cos, sin = rope_frequencies(cfg.resolved_head_dim, s, cfg.rope_theta,
                                 device=tokens.device)
     x = embed_tokens(params, tokens, cfg)
+    layer = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin)
+    training = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [params["embed"],
+                                  *params["layers"].values()])
+    remat = layer_remat(cfg) if training else None
     for _, lp in stacked_layers(params):
-        x = _decoder_layer(x, lp, cfg=cfg, cos=cos, sin=sin)
+        x = layer(x, lp) if remat is None else remat(layer, x, lp)
     return lm_head(params, cfg, x)
+
+
+def llama_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+               cfg: LlamaConfig, *, mesh=None) -> torch.Tensor:
+    """Next-token cross-entropy in fp32; batch has 'tokens' [b, s] and an
+    optional 'mask' [b, s] (1 = contribute to the loss)."""
+    tokens = batch["tokens"]
+    logits = llama_apply(params, tokens[:, :-1], cfg, mesh=mesh)
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:].float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -1,0 +1,200 @@
+"""The single-device train step: optimizer, trainer, make_llama_trainer.
+
+Counterpart of ``ray_tpu/models/training.py``.  ``default_optimizer`` is
+optax's chain as JAX builds it: ``clip_by_global_norm``, then ``adamw``
+(decay on every leaf) under ``warmup_cosine_decay_schedule``.  ``Trainer``
+stands in for ``ShardedTrainer`` on one device: the step runs the loss
+and its backward per microbatch (``accum_steps``), then updates params
+and optimizer state leaf by leaf in place, where JAX donates the state
+buffers.  Meshes belong to the parallel slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ray_tpu_torch._device import resolve_device
+
+# adamw's constants in ``default_optimizer`` (optax's eps, eps_root = 0)
+B1, B2, EPS = 0.9, 0.95, 1e-8
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict (or list) of tensors, in insertion
+    order: params and optimizer moments built alike line up."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def warmup_cosine_decay(count: int, peak: float, warmup: int,
+                        decay_steps: int) -> float:
+    """``optax.warmup_cosine_decay_schedule(0, peak, warmup, decay_steps)``
+    at ``count``: linear from 0 to ``peak`` over ``warmup`` steps, then
+    cosine to 0 at ``decay_steps``."""
+    if count < warmup:
+        return peak * count / warmup
+    t = min(count - warmup, decay_steps - warmup)
+    return peak * 0.5 * (1 + math.cos(math.pi * t / (decay_steps - warmup)))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """Global-norm clipping then AdamW under a warmup-cosine schedule, as
+    ``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, B1, B2,
+    EPS, weight_decay))``.  The learning rate is the schedule at the count
+    before the step (so the first step runs at 0)."""
+
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup: int = 100
+    decay_steps: int = 10000
+    grad_clip: float = 1.0
+
+    def learning_rate(self, count: int) -> float:
+        return warmup_cosine_decay(count, self.lr, self.warmup,
+                                   self.decay_steps)
+
+    def init(self, params) -> Dict[str, Any]:
+        zeros = functools.partial(_tree_map, torch.zeros_like)
+        return {"count": 0, "mu": zeros(params), "nu": zeros(params)}
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
+               params: List[torch.Tensor]) -> torch.Tensor:
+        """One step, in place on ``params``, ``state`` and ``grads`` (the
+        grads are clipped where they lie).  Returns the global grad norm
+        before clipping, as a device scalar (no host sync)."""
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g, dtype=torch.float32)
+             for g in grads]))
+        # optax: g if norm < clip else (g / norm) * clip
+        keep = norm < self.grad_clip
+        div = torch.where(keep, 1.0, norm)
+        mul = torch.where(keep, 1.0, self.grad_clip)
+        count = state["count"]
+        lr = self.learning_rate(count)
+        bc1 = 1 - B1 ** (count + 1)
+        bc2 = 1 - B2 ** (count + 1)
+        for p, g, m, v in zip(params, grads, tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"])):
+            g.div_(div).mul_(mul)
+            m.mul_(B1).add_(g, alpha=1 - B1)
+            v.mul_(B2).addcmul_(g, g, value=1 - B2)
+            u = torch.div(m, bc1)
+            u.div_(v.div(bc2).sqrt_().add_(EPS))
+            u.add_(p, alpha=self.weight_decay)
+            p.add_(u, alpha=-lr)
+        state["count"] = count + 1
+        return norm
+
+
+def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
+                      warmup: int = 100, decay_steps: int = 10000,
+                      grad_clip: float = 1.0) -> AdamW:
+    return AdamW(lr=lr, weight_decay=weight_decay, warmup=warmup,
+                 decay_steps=max(decay_steps, warmup + 1),
+                 grad_clip=grad_clip)
+
+
+class Trainer:
+    """Single-device counterpart of JAX's ``ShardedTrainer``.
+
+    ``init_fn(seed, device) -> params`` and ``loss_fn(params, batch) ->
+    scalar``.  ``step(state, batch)`` takes the full batch, splits it into
+    ``accum_steps`` microbatches along dim 0, sums their grads, averages,
+    and applies one optimizer update in place.  It returns the same state
+    and ``{"loss", "grad_norm"}`` as device scalars.
+    """
+
+    def __init__(self, init_fn: Callable[[int, torch.device], Any],
+                 loss_fn: Callable[[Any, Dict[str, torch.Tensor]],
+                                   torch.Tensor], *,
+                 optimizer: Optional[AdamW] = None, accum_steps: int = 1,
+                 device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded training comes with the parallel slice of the "
+                "port (ROADMAP Queue 1, item 7)")
+        self.device = resolve_device(device)
+        self.optimizer = optimizer or default_optimizer()
+        self.accum_steps = max(1, int(accum_steps))
+        self._init_fn = init_fn
+        self._loss_fn = loss_fn
+
+    def init_state(self, seed: int = 0, params=None) -> Dict[str, Any]:
+        """Fresh params from ``init_fn(seed)``, or the given ``params``
+        moved to the trainer's device; zero moments; step 0."""
+        if params is None:
+            params = self._init_fn(seed, self.device)
+        else:
+            params = _tree_map(lambda t: t.to(self.device), params)
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        return {"params": params, "opt_state": self.optimizer.init(params),
+                "step": 0}
+
+    def _microbatches(self, batch):
+        a = self.accum_steps
+        if a == 1:
+            return [batch]
+        for x in batch.values():
+            if x.dim() == 0 or x.shape[0] % a:
+                raise ValueError(
+                    f"batch leaf shape {tuple(x.shape)} is not divisible "
+                    f"into accum_steps={a} microbatches (every leaf needs a "
+                    "leading batch dim that is a multiple of accum_steps)")
+        return [{k: v.chunk(a)[i] for k, v in batch.items()}
+                for i in range(a)]
+
+    def step(self, state, batch) -> Tuple[Dict[str, Any],
+                                          Dict[str, torch.Tensor]]:
+        leaves = tree_leaves(state["params"])
+        for p in leaves:
+            p.grad = None
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        loss = torch.zeros((), device=self.device)
+        for mb in self._microbatches(batch):
+            mb_loss = self._loss_fn(state["params"], mb)
+            mb_loss.backward()
+            loss += mb_loss.detach()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in leaves]
+        if self.accum_steps > 1:
+            loss /= self.accum_steps
+            for g in grads:
+                g.div_(self.accum_steps)
+        grad_norm = self.optimizer.update(grads, state["opt_state"], leaves)
+        for p in leaves:
+            p.grad = None
+        state["step"] += 1
+        return state, {"loss": loss, "grad_norm": grad_norm}
+
+
+def make_llama_trainer(cfg, mesh=None, *, optimizer: Optional[AdamW] = None,
+                       accum_steps: int = 1, device=None) -> Trainer:
+    """A ``Trainer`` for ``ray_tpu_torch.models.llama``.  Raises at once
+    for a remat policy this port does not have yet."""
+    from ray_tpu_torch.models.llama import (layer_remat, llama_init,
+                                            llama_loss)
+
+    layer_remat(cfg)
+    return Trainer(lambda seed, dev: llama_init(cfg, seed, device=dev),
+                   functools.partial(llama_loss, cfg=cfg),
+                   optimizer=optimizer, accum_steps=accum_steps,
+                   device=device, mesh=mesh)

@@ -1,4 +1,4 @@
-"""Attention: plain reference and the dispatch onto the CUDA flash kernel.
+"""Attention: plain reference and the dispatch onto the CUDA flash kernels.
 
 Counterpart of ``ray_tpu/ops/attention.py``.  Ring attention (the ``sp``
 mesh axis) belongs to the parallel slice and is not ported yet.
@@ -71,9 +71,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatching attention entry point used by the model layer.
 
     impl: 'auto' | 'ref' | 'flash'.  'auto' picks the hand-written CUDA
-    flash kernel for CUDA inputs with ``seq >= 256`` and no window, and the
-    reference otherwise.  'flash' on CPU tensors runs the kernel's plain
-    PyTorch version.  'ring' and a mesh belong to the parallel slice.
+    flash kernels for CUDA inputs with ``seq >= 256`` and no window, and
+    the reference otherwise.  'flash' is the differentiable flash op (K1
+    forward, K2/K3 backward); on CPU tensors it runs the kernels' plain
+    PyTorch versions.  'ref' is plain autograd.  'ring' and a mesh belong
+    to the parallel slice.
     """
     if impl == "ring" or mesh is not None:
         raise NotImplementedError(

@@ -1,19 +1,29 @@
-"""K1: flash-attention forward as a hand-written CUDA kernel for Hopper.
+"""Flash attention as hand-written CUDA kernels for Hopper: K1, K2, K3.
 
-Replaces ``ray_tpu/ops/pallas/flash_attention.py::_fwd_kernel`` (launched
-by ``_flash_fwd_impl``).  The kernel is ``csrc/flash_fwd.cu`` (CUDA C++
-for sm_90a), built on first use by ``_build.py`` and called through its
-plain C interface with ``ctypes``.  The source note there says what bounds
-the kernel on an H100 and how the TPU design changes.
+- K1, the forward, replaces ``ray_tpu/ops/pallas/flash_attention.py::
+  _fwd_kernel`` (launched by ``_flash_fwd_impl``): ``csrc/flash_fwd.cu``.
+- K2 (dQ) and K3 (dK, dV), the backward, replace ``_dq_kernel`` and
+  ``_dkv_kernel`` (launched by ``_flash_bwd_impl``): ``csrc/flash_bwd.cu``.
 
-``flash_attention_plain`` is the same function in plain PyTorch: the CPU
-tests use it, and ``chip_smoke.py`` holds the kernel against it on the
-card.  The wrapper takes it only for tensors on the CPU; for CUDA tensors
-it launches the kernel or raises.  ``flash_attention_fwd.launches`` counts
-kernel launches.
+Each source is CUDA C++ for sm_90a, built on first use by ``_build.py``
+and called through its plain C interface with ``ctypes``; the note at the
+top of each says what bounds the kernel on an H100 and how the TPU design
+changes.
 
-Forward only: the backward kernels (K2, K3) come with the training slice,
-so inputs that require grad are refused.
+``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the same
+functions in plain PyTorch: the CPU tests use them, and ``chip_smoke.py``
+holds the kernels against them on the card.  The wrappers take them only
+for tensors on the CPU; for CUDA tensors they launch the kernels or
+raise.  ``flash_attention_fwd.launches`` counts K1 launches,
+``flash_attention_bwd.dq_launches`` K2's and
+``flash_attention_bwd.dkv_launches`` K3's.
+
+``flash_attention`` is the differentiable op, the counterpart of the JAX
+``custom_vjp``: the custom op ``ray_tpu_torch::flash_attention`` returns
+``(out, lse)``, saves ``(q, k, v, out, lse)`` and its backward runs
+``flash_attention_bwd``.  Being one op to the dispatcher, it is what the
+``save_attn`` remat policy keeps (``models/llama.py``), so the backward
+does not replay K1.
 """
 
 from __future__ import annotations
@@ -76,10 +86,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"devices differ: {q.device}, {k.device}, "
                          f"{v.device}")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "the flash-attention backward (K2/K3) comes with the training "
-            "slice of the port; K1 is forward only")
+
+
+def _check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
+    q = tensors[0]
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[3] not in _HEAD_DIMS:
+        raise ValueError(f"{name} takes head_dim in {_HEAD_DIMS}, got "
+                         f"{q.shape[3]}")
+    if any(t.stride(3) != 1 for t in tensors):
+        raise ValueError(f"{name} needs unit stride on the head dimension")
+    if q.shape[0] * q.shape[2] > 65535:
+        raise ValueError(f"b * h = {q.shape[0] * q.shape[2]} exceeds the "
+                         "grid's y limit")
 
 
 def _lib() -> ctypes.CDLL:
@@ -98,16 +118,9 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"K1 takes float32 or bfloat16, got {q.dtype}")
+    _check_kernel_inputs("K1", q, k, v)
     b, sq, h, d = q.shape
     sk, kv_h = k.shape[1], k.shape[2]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"K1 takes head_dim in {_HEAD_DIMS}, got {d}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("K1 needs unit stride on the head dimension")
-    if b * h > 65535:
-        raise ValueError(f"b * h = {b * h} exceeds the grid's y limit")
     lib = _lib()
     with torch.cuda.device(q.device):
         out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -142,7 +155,150 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain PyTorch version of K2 and K3: ``(dq, dk, dv)``.
+
+    ``P = exp(S * d**-0.5 - lse)`` with keys past the causal diagonal at
+    -1e30, ``dS = P * (dO V^T - D)`` with ``D = rowsum(dO * O)`` in fp32;
+    ``dq = scale * dS K`` and ``dk = scale * dS^T Q`` with dS cast to the
+    input dtype first, ``dv = P^T dO`` with P cast to dO's dtype first;
+    fp32 accumulation, grouped q-heads summed onto their kv head.
+    """
+    b, sq, h, d = q.shape
+    sk, kv_h = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    kx = _repeat_kv(k, h // kv_h).float()
+    vx = _repeat_kv(v, h // kv_h).float()
+    qf, dof = q.float(), do.float()
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)  # [b, h, sq]
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kx) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        kpos = torch.arange(sk, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        logits = torch.where(mask[None, None], logits, _NEG_INF)
+    p = torch.exp(logits - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vx)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kx) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    dk = dk.reshape(b, sk, kv_h, h // kv_h, d).sum(3)
+    dv = dv.reshape(b, sk, kv_h, h // kv_h, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    from ray_tpu_torch.ops.cuda import _build
+
+    lib = _build.load("flash_bwd")
+    if not lib.ray_tpu_flash_bwd.argtypes:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ray_tpu_flash_bwd.argtypes = (
+            [i32] + [ptr] * 9 + [i32] * 8 + [i64] * 12
+            + [ctypes.c_float, ptr])
+        lib.ray_tpu_flash_bwd.restype = ctypes.c_int
+        lib.ray_tpu_flash_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.ray_tpu_flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.ray_tpu_flash_bwd_error_string(err).decode())
+
+
+def _launch_bwd(q, k, v, out, lse, do, causal):
+    _check_kernel_inputs("K2/K3", q, k, v, do)
+    b, sq, h, d = q.shape
+    sk, kv_h = k.shape[1], k.shape[2]
+    if out.shape != q.shape or do.shape != q.shape \
+            or do.dtype != q.dtype or lse.shape != (b, h, sq) \
+            or lse.dtype != torch.float32:
+        raise ValueError(
+            f"K2/K3 take out and do shaped and typed as q {tuple(q.shape)} "
+            f"{q.dtype} and fp32 lse [b, h, sq]; got out "
+            f"{tuple(out.shape)}, do {tuple(do.shape)} {do.dtype}, lse "
+            f"{tuple(lse.shape)} {lse.dtype}")
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        lse = lse.contiguous()
+        # D = rowsum(dO * O), as JAX computes it outside the kernels
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        dk = torch.empty((b, sk, kv_h, d), dtype=k.dtype, device=q.device)
+        dv = torch.empty((b, sk, kv_h, d), dtype=v.dtype, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, sq,
+                sk, h, kv_h, d, int(causal), *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                d ** -0.5, stream)
+        _raise_on(lib, lib.ray_tpu_flash_bwd(0, *args), "K2 flash_bwd dq")
+        flash_attention_bwd.dq_launches += 1
+        _raise_on(lib, lib.ray_tpu_flash_bwd(1, *args), "K3 flash_bwd dkv")
+        flash_attention_bwd.dkv_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of flash attention from the forward's residuals
+    ``out`` and ``lse [b, h, sq] fp32`` and the output grad ``do``.  CUDA
+    tensors launch K2 then K3 (head_dim 64 or 128, float32 or bfloat16;
+    anything else raises); CPU tensors run ``flash_attention_bwd_plain``."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"K2/K3 run on CUDA or the CPU, not {q.device}")
+    return _launch_bwd(q, k, v, out, lse, do, causal)
+
+
+flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.dkv_launches = 0
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of ``flash_attention_fwd`` as one differentiable op."""
+    return flash_attention_fwd(q, k, v, causal=causal)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, causal = inputs
+    out, lse = output
+    ctx.causal = causal
+    ctx.save_for_backward(q, k, v, out, lse)
+
+
+def _flash_backward(ctx, g_out, _g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out.contiguous(),
+                                     causal=ctx.causal)
+    return dq, dk, dv, None
+
+
+flash_attention_op.register_autograd(_flash_backward,
+                                     setup_context=_flash_setup_context)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """Flash attention output. q: [b, s, h, d]; k, v: [b, s, kv_h, d]."""
-    return flash_attention_fwd(q, k, v, causal=causal)[0]
+    """Flash attention output, differentiable (K1 forward, K2/K3 backward
+    on CUDA).  q: [b, s, h, d]; k, v: [b, s, kv_h, d]."""
+    return flash_attention_op(q, k, v, causal)[0]

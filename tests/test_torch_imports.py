@@ -52,7 +52,8 @@ def test_import_leaves_jax_and_reference_unloaded():
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.llm.engine, "
-        "ray_tpu_torch.models.convert, ray_tpu_torch.ops.cuda._build, "
+        "ray_tpu_torch.models.convert, ray_tpu_torch.models.training, "
+        "ray_tpu_torch.ops.cuda._build, "
         "ray_tpu_torch.ops.cuda.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu'))\n"
