@@ -14,23 +14,39 @@ Phases, each printing one JSON line:
    per case one line for K1 (the flash forward) and one for K2/K3 (its
    backward), with the kernels', the plain version's and one library
    call's time, and the least time the card could take.
+   Then K4 (the remote copy) in rings of four ranks on one card: at the
+   main-path payload, one Llama-2-7B pipeline-stage activation ([1, 2048,
+   4096] bf16, 16 MiB), shifts 1 and 3, and at odd byte counts, each
+   bit-exact against ``copy_`` with one launch per hop; with two cards and
+   peer access, also the ring over NVLink, else a line saying why not.
 3. ``small_reference``: small fp32 models on the card against a plain
    reference: the forward through K1 against the reference attention,
    greedy ``LLMEngine`` output against full-recompute argmax, and three
    train steps (K1/K2/K3 under ``save_attn``) against the same steps
    through the plain versions on the CPU.
-4. ``forward``: ``llama_apply`` at full Llama-2-7B width and depth (bf16
+4. ``channel``: a device-tier edge between two processes.  This process
+   writes ten 16 MiB bf16 activations (and a step counter) through
+   ``make_edge_transport``; a reader started with ``spawn`` on the same
+   card lands each on the card with ``read_borrowed`` and sends back a
+   digest of its bytes.  Both ends must negotiate the device tier from
+   their own endpoint info, every frame must be a device frame, none may
+   degrade, and every segment is destroyed.
+5. ``ring``: ``device_ring_copy`` (the in-process device hop) moves the
+   four ranks' activations around the ring, shifts 1 and 3; K4 must
+   launch once per hop and the result must equal the shifted input.
+6. ``forward``: ``llama_apply`` at full Llama-2-7B width and depth (bf16
    weights from a seed, b=1, s=2048); K1 must launch once per layer.
-5. ``serve``: ``LLMEngine`` on the same model answers five ~200-token
+7. ``serve``: ``LLMEngine`` on the same model answers five ~200-token
    requests, two sharing a 64-token prefix (greedy, 32 new tokens).
-6. ``train``: the 7B serving weights are freed, then ``make_llama_trainer``
+8. ``train``: the 7B serving weights are freed, then ``make_llama_trainer``
    at Llama-2-7B width cut to 16 layers (fp32 params and AdamW state,
    bf16 activations, ``save_attn``) takes two warm-up and three timed
    steps on b=1, s=2048 random tokens; K1, K2 and K3 must each launch
    once per layer per step, and loss and grad norm must be finite.
 
-Then the ``kernels`` line (every ported kernel with its launches on the
-main path), the ``nvidia-smi`` line and, last, the result line
+Then the ``kernels`` line (every ported kernel with its launches on its
+main path: K1, K2 and K3 in ``train``, K4 in ``ring``), the
+``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the traceback is
 printed, the exit code is non-zero and no result line is printed.  Without
 CUDA, or without the package beside it, the script exits non-zero at once.
@@ -57,9 +73,16 @@ TRAIN_STEPS = 3
 DEPTH_CUT = ("32 → 16 layers: fp32 params + AdamW state of the full depth "
              "is ~108 GB")
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# fp32 on the CUDA cores, HBM3 bandwidth
+# fp32 on the CUDA cores, HBM3 bandwidth, NVLink each way
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+PEAK_NVLINK_BYTES = 450e9
+# the channel plane's payload: one Llama-2-7B pipeline-stage activation
+# [b=1, s=SEQ, hidden 4096] in bf16, 16 MiB
+ACTIVATION = (1, SEQ, 4096)
+RING_RANKS = 4
+RING_SHIFTS = (1, 3)
+CHANNEL_FRAMES = 10
 
 # (name, b, s, h, kv_h, d, dtype, causal, atol/rtol on O, atol on lse)
 # bf16: O is rounded to bf16 and P is cast to bf16 before PV, so 2e-2;
@@ -296,6 +319,391 @@ def phase_kernels_bwd(q, k, v, out, lse, do, causal, tol):
     row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         library_fwd(), (qt, kt, vt), dot)) - cuda_ms(library_fwd)
     return row
+
+
+def activation_shards(device="cuda", n=RING_RANKS, shape=ACTIVATION,
+                      dtype="bfloat16", seed=11):
+    """``n`` ranks' tensors of ``shape`` (random, from ``seed``)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    out = [torch.randn(shape, generator=gen, device=device)
+           for _ in range(n)]
+    if not dt.is_floating_point:
+        out = [x.mul_(40).round_() for x in out]
+    return [x.to(dt) for x in out]
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def k4_ring_case(shards, shift):
+    """One ring through K4 (``device_ring_copy``) against the same ring
+    through its plain version (``copy_``): bit-exact, one launch per hop.
+    Returns the launches and the largest |difference|."""
+    from ray_tpu_torch.experimental.channel.transport import device_ring_copy
+    from ray_tpu_torch.ops.cuda.remote_copy import (remote_copy,
+                                                    remote_copy_plain)
+
+    n = len(shards)
+    before = remote_copy.launches
+    got = device_ring_copy(shards, shift=shift)
+    launches = remote_copy.launches - before
+    want = [None] * n
+    for i, x in enumerate(shards):
+        j = (i + shift) % n
+        want[j] = x.new_empty(x.shape, device=shards[j].device)
+        remote_copy_plain(x, want[j])
+    err = max(float((g.float() - w.float()).abs().max()) if g.numel()
+              else 0.0 for g, w in zip(got, want))
+    if launches != n or not all(_same_bits(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"K4 ring of {n} ({tuple(shards[0].shape)} "
+                             f"{shards[0].dtype}, shift {shift}): {launches} "
+                             f"launches, max |d| {err} against copy_")
+    return launches, err
+
+
+def device_ms(fn, iters):
+    """Device time per call of ``fn``, all its kernels summed
+    (``device_times``), or "not measured"."""
+    return sum(device_times(fn, iters).values()) or "not measured"
+
+
+def k4_hop_ms(srcs, dsts, iters=20):
+    """Per hop that rotates through the (src, dst) pairs, so each finds its
+    bytes cold in L2: the device time of K4 (its copy and its wait kernel)
+    and of ``copy_`` in turns (plain, K4, K4, library), by the profiler;
+    the copy kernel alone; and the wall time of back-to-back hops by CUDA
+    events, which includes the host's launch gaps.  Across two cards the
+    sum counts the wait kernel, which spins on the destination while the
+    copy runs on the source: there the copy kernel alone is the hop."""
+    from ray_tpu_torch.ops.cuda.remote_copy import (check_remote_copies,
+                                                    remote_copy,
+                                                    remote_copy_plain)
+
+    def rotate(fn):
+        state = {"k": 0}
+
+        def hop():
+            k = state["k"] = (state["k"] + 1) % len(srcs)
+            fn(srcs[k], dsts[k])
+        return hop
+
+    plain_ms = device_ms(rotate(remote_copy_plain), iters)
+    ms = device_ms(rotate(remote_copy), iters)
+    ms_again = device_ms(rotate(remote_copy), iters)
+    library_ms = device_ms(rotate(remote_copy_plain), iters)
+    times = device_times(rotate(remote_copy), iters)
+    hop_wall_ms = cuda_ms(rotate(remote_copy), iters)
+    check_remote_copies()
+    kernel_ms = [t for name, t in times.items() if "remote_copy_kernel" in name]
+    wait_ms = [t for name, t in times.items() if "remote_wait_kernel" in name]
+    return {"ms": ms, "ms_again": ms_again, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "copy_kernel_ms": kernel_ms[0] if kernel_ms else "not measured",
+            "wait_kernel_ms": wait_ms[0] if wait_ms else "not measured",
+            "hop_wall_ms": hop_wall_ms}
+
+
+def phase_kernels_k4():
+    """K4 against ``copy_`` on the card: rings of RING_RANKS ranks on
+    cuda:0 at the main-path payload (shifts 1 and 3) and at odd byte
+    counts, and the ring over two cards when there are two with peer
+    access.  Returns the main-path row."""
+    import torch
+
+    nbytes = math.prod(ACTIVATION) * 2
+    shards = activation_shards()
+    row = {"phase": "kernel", "kernel": "K4 remote_copy", "case": "main_path",
+           "ranks": RING_RANKS, "device": "cuda:0 (every rank)",
+           "shape": list(ACTIVATION), "dtype": "bfloat16", "nbytes": nbytes,
+           "shifts": list(RING_SHIFTS), "launches_per_ring": [],
+           "max_abs_err": 0.0, "compared_with": "copy_, bit-exact"}
+    for shift in RING_SHIFTS:
+        launches, err = k4_ring_case(shards, shift)
+        row["launches_per_ring"].append(launches)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    dsts = [torch.empty_like(x) for x in shards]
+    row.update(k4_hop_ms(shards, dsts))
+    row["bound_ms"] = 1e3 * 2 * nbytes / PEAK_BYTES
+    row["bound_by"] = "bytes"
+    emit(row)
+    del dsts
+    for dtype, shape in (("float32", (3, 7)), ("int8", (37,))):
+        small = activation_shards(shape=shape, dtype=dtype, seed=12)
+        launches, err = k4_ring_case(small, 1)
+        emit({"phase": "kernel", "kernel": "K4 remote_copy",
+              "case": f"odd_bytes_{dtype}", "ranks": RING_RANKS,
+              "shape": list(shape), "dtype": dtype,
+              "nbytes": small[0].numel() * small[0].element_size(),
+              "launches_per_ring": [launches], "max_abs_err": err})
+    emit({"phase": "kernel", "kernel": "K4 remote_copy", "case": "peer_ring",
+          **k4_peer_ring()})
+    del shards
+    torch.cuda.empty_cache()
+    return row
+
+
+def k4_peer_ring():
+    """The ring over the visible cards (rank i on cuda:i, at most
+    RING_RANKS), each hop a store over NVLink, or why it was not run."""
+    import torch
+
+    count = min(torch.cuda.device_count(), RING_RANKS)
+    if count < 2:
+        return {"run": False, "why": f"{count} CUDA device visible; the "
+                "peer ring needs two"}
+    missing = [(i, j) for i in range(count) for j in range(count)
+               if i != j and not torch.cuda.can_device_access_peer(i, j)]
+    if missing:
+        return {"run": False, "why": f"no peer access between {missing}"}
+    nbytes = math.prod(ACTIVATION) * 2
+    shards = [x.to(f"cuda:{i}") for i, x in
+              enumerate(activation_shards(n=count, seed=13))]
+    launches = []
+    err = 0.0
+    for shift in RING_SHIFTS:
+        n, e = k4_ring_case(shards, shift)
+        launches.append(n)
+        err = max(err, e)
+    dsts = [torch.empty_like(shards[0], device="cuda:1")]
+    times = k4_hop_ms(shards[:1], dsts)
+    return {"run": True, "ranks": count, "shifts": list(RING_SHIFTS),
+            "launches_per_ring": launches, "max_abs_err": err,
+            "nbytes": nbytes, "timed_hop": "cuda:0 -> cuda:1", **times,
+            "bound_ms": 1e3 * nbytes / PEAK_NVLINK_BYTES,
+            "bound_by": "bytes (NVLink, 450 GB/s each way)"}
+
+
+def tensor_digest(t) -> int:
+    """A digest of a tensor's bytes, computed where the tensor lies: the
+    sum of its 16-bit words, each times an odd weight that depends on its
+    position, in int64 arithmetic that wraps."""
+    import torch
+
+    words = t.contiguous().view(torch.int16).reshape(-1).to(torch.int64)
+    weight = torch.arange(words.numel(), device=words.device) * 2 + 1
+    return int((words * weight).sum())
+
+
+def channel_reader(forward, back, writer_info, frames, device):
+    """The reader process of the ``channel`` phase: bring CUDA up on
+    ``device`` (as a pipeline stage that computes would have it), probe
+    and negotiate from its own endpoint info, then land ``frames`` frames
+    with ``read_borrowed`` and send their digests back."""
+    import torch
+
+    from ray_tpu_torch.experimental.channel.transport import (
+        attach_edge_transport, local_endpoint_info, negotiate)
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device))
+        torch.cuda.init()
+    info = local_endpoint_info()
+    back.write({"info": info, "tier": negotiate(writer_info, info)},
+               timeout=120)
+    rd = attach_edge_transport(forward, 0, device=device)
+    forward.channel.detach()
+    try:
+        digests = [rd.read_borrowed(
+            lambda v: (v["step"], tensor_digest(v["x"]),
+                       str(v["x"].device)), timeout=120)
+            for _ in range(frames)]
+        back.write({"digests": digests, "stats": rd.stats}, timeout=120)
+    finally:
+        rd.channel.detach()
+        back.channel.detach()
+
+
+def _wall(fn) -> float:
+    """Seconds of ``fn()`` by the host clock, the device synchronised on
+    both sides when there is one."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return time.perf_counter() - t0
+
+
+def while_alive(proc, op, timeout):
+    """``op(1.0)`` (a channel read or write with a one-second deadline)
+    retried until it succeeds, for at most ``timeout`` seconds; raises as
+    soon as ``proc``, the peer that must answer, has exited."""
+    from ray_tpu_torch.experimental.channel import ChannelTimeoutError
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return op(1.0)
+        except ChannelTimeoutError:
+            if proc.exitcode is not None:
+                raise AssertionError(f"the reader process exited with code "
+                                     f"{proc.exitcode}") from None
+            if time.monotonic() > deadline:
+                raise
+
+
+def phase_channel(device="cuda:0", frames=CHANNEL_FRAMES):
+    """A device-tier edge between this process and a reader started with
+    ``spawn`` on the same card: ``frames`` activations written through
+    ``make_edge_transport`` (sized as the compiled DAG sizes a channel for
+    a 16 MiB payload: + 256 bytes of frame slack), landed by the reader,
+    digests compared.  Returns times, tiers and stats."""
+    import multiprocessing
+
+    import torch
+
+    from ray_tpu_torch._private.shm import open_shm
+    from ray_tpu_torch.experimental.channel.transport import (
+        TIER_DEVICE, TIER_HOST, attach_edge_transport, local_endpoint_info,
+        make_edge_transport, negotiate)
+
+    nbytes = math.prod(ACTIVATION) * 2
+    xs = activation_shards(device=device, n=frames, seed=14)
+    want = [(k, tensor_digest(x)) for k, x in enumerate(xs)]
+    writer_info = local_endpoint_info()
+    fwd = make_edge_transport(tier=TIER_DEVICE, buffer_size=nbytes + 256,
+                              edge="stage0->stage1")
+    back = make_edge_transport(tier=TIER_HOST, buffer_size=1 << 16,
+                               edge="stage1->stage0")
+    reply = attach_edge_transport(back, 0, device=device)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=channel_reader, daemon=True,
+        args=(fwd, back, writer_info, frames, str(torch.device(device))))
+    names = [fwd.name, back.name]
+    try:
+        t0 = time.perf_counter()
+        proc.start()
+        hello = while_alive(proc, reply.read, 180)
+        reader_up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for k, x in enumerate(xs):
+            while_alive(proc, lambda t: fwd.write({"x": x, "step": k},
+                                                  timeout=t), 120)
+        done = while_alive(proc, reply.read, 120)
+        wall_s = time.perf_counter() - t0
+        proc.join(timeout=60)
+        exitcode = proc.exitcode
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+        reply.channel.detach()
+        fwd.destroy()
+        back.destroy()
+    left = []
+    for name in names:
+        try:
+            open_shm(name=name).close()
+            left.append(name)
+        except FileNotFoundError:
+            pass
+    got = [(k, d) for k, d, _ in done["digests"]]
+    tiers = {"writer": negotiate(writer_info, hello["info"]),
+             "reader": hello["tier"]}
+    faults = []
+    if exitcode != 0:
+        faults.append(f"reader exit code {exitcode}")
+    if got != want:
+        faults.append(f"digests {got} != {want}")
+    if tiers != {"writer": TIER_DEVICE, "reader": TIER_DEVICE}:
+        faults.append(f"tiers {tiers}")
+    if fwd.stats["device_frames"] != frames or fwd.stats["degraded"] \
+            or done["stats"]["degraded"]:
+        faults.append(f"writer stats {fwd.stats}, reader stats "
+                      f"{done['stats']}")
+    if left:
+        faults.append(f"segments not destroyed: {left}")
+    if faults:
+        raise AssertionError("channel: " + "; ".join(faults))
+    return {"frames": frames, "frame_bytes": nbytes,
+            **frame_copies_ms(xs[0], xs[1]),
+            "buffer_size": nbytes + 256, "tiers": tiers,
+            "writer_info": dataclasses.asdict(writer_info),
+            "reader_info": dataclasses.asdict(hello["info"]),
+            "landed_on": sorted({dev for _, _, dev in done["digests"]}),
+            "ms_per_frame": 1e3 * wall_s / frames,
+            "gb_per_s": frames * nbytes / wall_s / 1e9,
+            "writer_ms_per_frame": 1e3 * fwd.stats["write_wait_s"] / frames,
+            "reader_ms_per_frame": 1e3 * done["stats"]["read_wait_s"]
+            / frames,
+            "reader_start_s": reader_up_s, "digests_equal": True,
+            "writer_stats": fwd.stats, "reader_stats": done["stats"],
+            "segments_destroyed": names}
+
+
+def frame_copies_ms(x, out):
+    """Where a frame's time goes: each copy that one frame of ``x`` makes,
+    timed alone in this process (best of three): the writer's pageable D2H
+    (``.cpu()``), its memcpy into a segment, a pageable H2D, and the
+    reader's landing, an H2D into ``out`` from a page-locked segment."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.experimental.channel import Channel
+
+    def best(fn):
+        return 1e3 * min(_wall(fn) for _ in range(3))
+
+    nbytes = x.numel() * x.element_size()
+    host = x.cpu()
+    raw = host.reshape(-1).view(torch.uint8).numpy()
+    seg = Channel(buffer_size=nbytes)
+    try:
+        shm = np.frombuffer(seg._payload(nbytes), np.uint8)
+        row = {"d2h_ms": best(lambda: x.cpu()),
+               "shm_write_ms": best(lambda: np.copyto(shm, raw)),
+               "h2d_ms": best(lambda: out.copy_(host))}
+        seg.pin_for_cuda()
+        landing = torch.frombuffer(seg._payload(nbytes), dtype=x.dtype)
+        row["h2d_pinned_ms"] = best(
+            lambda: out.view(-1).copy_(landing, non_blocking=True))
+        del shm, landing
+    finally:
+        seg.destroy()
+    return row
+
+
+def phase_ring(device="cuda"):
+    """The in-process device hop at the main-path payload: RING_RANKS
+    ranks' activations around the ring through ``device_ring_copy``,
+    shifts 1 and 3, the K4 count set to 0 just before and read just
+    after; each result must equal the shifted input."""
+    import torch
+
+    from ray_tpu_torch.experimental.channel.transport import device_ring_copy
+    from ray_tpu_torch.ops.cuda.remote_copy import remote_copy
+
+    shards = activation_shards(device=device, seed=15)
+    torch.cuda.synchronize()
+    remote_copy.launches = 0
+    t0 = time.perf_counter()
+    outs = [device_ring_copy(shards, shift=s) for s in RING_SHIFTS]
+    wall_s = time.perf_counter() - t0
+    launches = remote_copy.launches
+    for shift, out in zip(RING_SHIFTS, outs):
+        for i, x in enumerate(shards):
+            if not _same_bits(out[(i + shift) % RING_RANKS], x):
+                raise AssertionError(f"ring shift {shift}: rank "
+                                     f"{(i + shift) % RING_RANKS} does not "
+                                     f"hold rank {i}'s tensor")
+    if launches != RING_RANKS * len(RING_SHIFTS):
+        raise AssertionError(f"K4 launched {launches} times in "
+                             f"{len(RING_SHIFTS)} rings of {RING_RANKS}")
+    return {"ranks": RING_RANKS, "shifts": list(RING_SHIFTS),
+            "shape": list(ACTIVATION), "dtype": "bfloat16",
+            "k4_launches": launches, "wall_ms_per_ring":
+            1e3 * wall_s / len(RING_SHIFTS)}
 
 
 def phase_small_reference(device="cuda"):
@@ -665,7 +1073,11 @@ def main() -> int:
 
     smi = phase_env()
     k1 = phase_kernels()
+    k4 = phase_kernels_k4()
     emit({"phase": "small_reference", **phase_small_reference()})
+    emit({"phase": "channel", **phase_channel()})
+    ring = phase_ring()
+    emit({"phase": "ring", **ring})
 
     cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
                               param_dtype=torch.bfloat16)
@@ -737,7 +1149,14 @@ def main() -> int:
          "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
          "ms": bwd["k3_ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["k3_bound_ms"], "bound_by": bwd["k3_bound_by"],
-         "library_ms": bwd["library_ms"]}]})
+         "library_ms": bwd["library_ms"]},
+        {"name": "K4 remote_copy", "route": "cuda",
+         "source": source + "remote_copy.cu",
+         "replaces": "ray_tpu/experimental/channel/transport.py:285",
+         "launches": ring["k4_launches"], "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": k4["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -165,11 +165,13 @@ def stacked_layers(params) -> Iterator[Tuple[int, Dict[str, torch.Tensor]]]:
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: LlamaConfig):
-    """Embedding gather in ``cfg.dtype``.  JAX clamps out-of-range gather
-    indices where torch raises (CPU) or asserts on the device (CUDA), so
-    ids are clamped into the table explicitly, as the JAX engine relies
-    on."""
-    ids = tokens.clamp(0, params["embed"].shape[0] - 1)
+    """Embedding gather in ``cfg.dtype``.  JAX's ``embed[tokens]`` wraps
+    negative ids (``ids + V``) and clamps what is still out of range,
+    where torch raises (CPU) or asserts on the device (CUDA), so both
+    steps are explicit here: -1 reads row V-1, and ids below -V or at V
+    and above read the first or last row."""
+    vocab = params["embed"].shape[0]
+    ids = torch.where(tokens < 0, tokens + vocab, tokens).clamp(0, vocab - 1)
     return params["embed"][ids].to(cfg.dtype)
 
 

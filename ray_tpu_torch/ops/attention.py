@@ -64,6 +64,19 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def flash_takes(q_shape, dtype) -> bool:
+    """Whether the CUDA flash kernels take ``q [b, s, h, d]`` of ``dtype``:
+    head_dim 64 or 128, float32 or bfloat16, and b * h within the grid's
+    y limit.  'auto' sends everything else to ``reference_attention``,
+    where the JAX flash op computes any shape."""
+    from ray_tpu_torch.ops.cuda.flash_attention import (_DTYPE_CODE,
+                                                        _HEAD_DIMS,
+                                                        _MAX_GRID_Y)
+
+    b, _, h, d = q_shape
+    return d in _HEAD_DIMS and dtype in _DTYPE_CODE and b * h <= _MAX_GRID_Y
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, impl: str = "auto",
                           mesh=None, sp_axis: str = "sp",
@@ -71,8 +84,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatching attention entry point used by the model layer.
 
     impl: 'auto' | 'ref' | 'flash'.  'auto' picks the hand-written CUDA
-    flash kernels for CUDA inputs with ``seq >= 256`` and no window, and
-    the reference otherwise.  'flash' is the differentiable flash op (K1
+    flash kernels for CUDA inputs with ``seq >= 256``, no window and a
+    shape and dtype the kernels take (``flash_takes``), and the reference
+    otherwise.  'flash' is the differentiable flash op (K1
     forward, K2/K3 backward); on CPU tensors it runs the kernels' plain
     PyTorch versions.  'ref' is plain autograd.  'ring' and a mesh belong
     to the parallel slice.
@@ -83,7 +97,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "parallel slice of the port (ROADMAP Queue 1, item 7)")
     if impl == "auto":
         impl = ("flash" if q.is_cuda and q.shape[1] >= 256
-                and window is None else "ref")
+                and window is None and flash_takes(q.shape, q.dtype)
+                else "ref")
     if impl == "flash":
         if window is not None:
             raise ValueError(

@@ -37,6 +37,7 @@ from ray_tpu_torch.ops.attention import _NEG_INF, _repeat_kv
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+_MAX_GRID_Y = 65535  # b * h: the kernels' grid y dimension
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,7 +98,7 @@ def _check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
                          f"{q.shape[3]}")
     if any(t.stride(3) != 1 for t in tensors):
         raise ValueError(f"{name} needs unit stride on the head dimension")
-    if q.shape[0] * q.shape[2] > 65535:
+    if q.shape[0] * q.shape[2] > _MAX_GRID_Y:
         raise ValueError(f"b * h = {q.shape[0] * q.shape[2]} exceeds the "
                          "grid's y limit")
 

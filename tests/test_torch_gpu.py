@@ -77,3 +77,137 @@ def test_bwd_kernels_match_plain_on_card():
             flash.flash_attention_bwd.dkv_launches) == tuple(
                 c + 1 for c in counts)
     assert_bwd_close(qg.grad, want[0], BWD_ATOL[0])
+
+
+@pytest.mark.gpu
+def test_auto_attention_head_dim_16_on_card():
+    """'auto' on a shape K1 does not take (head_dim 16, s >= 256) computes
+    through the reference instead of raising, and matches
+    ``reference_attention`` within K1's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tpu_torch.ops.attention import (dot_product_attention,
+                                             reference_attention)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(2, 256, 4, 16, generator=gen, device="cuda")
+    k = torch.randn(2, 256, 2, 16, generator=gen, device="cuda")
+    v = torch.randn(2, 256, 2, 16, generator=gen, device="cuda")
+    before = flash.flash_attention_fwd.launches
+    got = dot_product_attention(q, k, v, causal=True)
+    assert flash.flash_attention_fwd.launches == before
+    torch.testing.assert_close(got, reference_attention(q, k, v),
+                               atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="head_dim"):
+        dot_product_attention(q, k, v, impl="flash")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 2048, 4096), torch.bfloat16),  # 16 MiB, the main-path payload
+    ((3, 7), torch.float32),            # 84 B: 5 vectors and a tail
+    ((37,), torch.int8),                # 37 B: 2 vectors and a tail
+])
+def test_remote_copy_matches_copy_on_card(shape, dtype):
+    """K4 against ``copy_``, bit-exact, one launch per hop, on one card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
+    from ray_tpu_torch.experimental.channel.transport import device_ring_copy
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shards = [torch.randint(-100, 100, shape, generator=gen, device="cuda")
+              .to(dtype) for _ in range(4)]
+    src, dst = shards[0], torch.full_like(shards[0], 7)
+    before = rc.remote_copy.launches
+    rc.remote_copy(src, dst)
+    rc.check_remote_copies()
+    assert rc.remote_copy.launches == before + 1
+    assert torch.equal(dst, src)
+    for shift in (1, 3):
+        launched = rc.remote_copy.launches
+        out = device_ring_copy(shards, shift=shift)
+        assert rc.remote_copy.launches == launched + 4  # one per hop
+        for i, x in enumerate(shards):
+            assert torch.equal(out[(i + shift) % 4], x)
+
+
+@pytest.mark.gpu
+def test_remote_copy_wait_timeout_raises():
+    """A wait whose flag never reaches its epoch gives up after its bound
+    and the wrapper raises; the next hop on the pair works again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
+
+    x = torch.arange(64, dtype=torch.float32, device="cuda")
+    y = torch.empty_like(x)
+    rc.remote_copy(x, y)
+    rc.check_remote_copies()
+    lib = rc._lib()
+    comp = rc._completion(lib, x.device, y.device,
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    rc._launch_wait(lib, comp, comp.epoch + 1000, timeout_s=1e-3)
+    with pytest.raises(RuntimeError, match="timed out"):
+        rc.check_remote_copies()
+    rc.remote_copy(x * 2, y)
+    rc.check_remote_copies()
+    assert torch.equal(y, x * 2)
+
+
+@pytest.mark.gpu
+def test_remote_copy_two_streams_on_one_pair():
+    """Hops between one pair of devices from two streams at once: each
+    stream has its own completion, and work queued after a hop's wait on
+    its stream sees every byte of that hop, never a half-copied buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    hops = 8
+    srcs = [[torch.randint(-100, 100, (1 << 21,), generator=gen,
+                           device="cuda", dtype=torch.int16)
+             for _ in range(hops)] for _ in streams]
+    seen = [[] for _ in streams]
+    torch.cuda.synchronize()
+    for h in range(hops):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                dst = torch.zeros_like(srcs[k][h])
+                rc.remote_copy(srcs[k][h], dst)
+                seen[k].append(dst.clone())  # queued after the hop's wait
+    torch.cuda.synchronize()
+    rc.check_remote_copies()
+    for k in range(len(streams)):
+        for h in range(hops):
+            assert torch.equal(seen[k][h], srcs[k][h]), (k, h)
+    keys = {(0, 0, s.cuda_stream) for s in streams}
+    assert keys <= set(rc._REG.pairs)
+    assert all(rc._REG.pairs[key].epoch >= hops for key in keys)
+
+
+@pytest.mark.gpu
+def test_channel_read_value_lands_on_card():
+    """With no device asked for, a tensor read from a channel lands on the
+    card, as at every entry point of the port."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the default landing is the card")
+    from ray_tpu_torch.experimental.channel import Channel
+
+    ch = Channel(buffer_size=1 << 20)
+    rd = Channel(ch.name, buffer_size=ch.buffer_size,
+                 _create=False).set_reader_slot(0)
+    try:
+        x = torch.arange(4096, device="cuda", dtype=torch.bfloat16)
+        ch.write_value({"x": x}, timeout=5)
+        got = rd.read_value(timeout=5)["x"]
+        assert got.device == torch.device("cuda", 0)
+        assert torch.equal(got, x)
+        ch.write_value({"x": x}, timeout=5)
+        assert rd.read_value(timeout=5, device="cpu")["x"].device.type \
+            == "cpu"
+    finally:
+        rd.detach()
+        ch.destroy()

@@ -54,7 +54,12 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import ray_tpu_torch, ray_tpu_torch.llm.engine, "
         "ray_tpu_torch.models.convert, ray_tpu_torch.models.training, "
         "ray_tpu_torch.ops.cuda._build, "
-        "ray_tpu_torch.ops.cuda.flash_attention\n"
+        "ray_tpu_torch.ops.cuda.flash_attention, "
+        "ray_tpu_torch.ops.cuda.remote_copy, "
+        "ray_tpu_torch._private.shm, ray_tpu_torch._private.serialization, "
+        "ray_tpu_torch.experimental, ray_tpu_torch.experimental.channel, "
+        "ray_tpu_torch.experimental.channel.shared_memory_channel, "
+        "ray_tpu_torch.experimental.channel.transport\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"

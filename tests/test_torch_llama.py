@@ -118,6 +118,28 @@ def test_llama_apply_gqa_and_window_match_jax():
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+def test_negative_and_out_of_range_ids_match_jax():
+    """JAX's ``embed[tokens]`` wraps negative ids and clamps the rest (as
+    traced under ``jit``, the way its engines run the model; eager JAX
+    raises on a concrete out-of-range id): -1 reads row V-1, V+3 and ids
+    below -V read the last and first rows.  1e-4 as the fp32 forward
+    above."""
+    jcfg, tcfg = _configs()
+    tree = _jax_params(jcfg)
+    V = jcfg.vocab_size
+    tokens = np.array([[-1, 5, V + 3, 0, -V - 2, 7, -V, V - 1]],
+                      dtype=np.int32)
+    apply = jax.jit(lambda p, t: jllama.llama_apply(p, t, jcfg))
+    want = np.asarray(apply(tree, jnp.asarray(tokens)))
+    params = params_from_jax(tree, tcfg, device="cpu")
+    got = tllama.llama_apply(params, torch.from_numpy(tokens), tcfg).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    # -1 reads the last row, as JAX does: the same logits as id V-1 at
+    # position 0
+    last = tllama.llama_apply(params, torch.tensor([[V - 1]]), tcfg).numpy()
+    np.testing.assert_allclose(got[0, 0], last[0, 0], atol=1e-5)
+
+
 def test_llama_apply_refuses_mesh():
     _, tcfg = _configs()
     params = tllama.llama_init(tcfg, device="cpu")

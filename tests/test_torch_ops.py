@@ -151,6 +151,21 @@ def test_dot_product_attention_dispatch(monkeypatch):
         tattn.dot_product_attention(q, k, v, mesh=object())
 
 
+def test_auto_flash_eligibility_predicate():
+    """'auto' sends a CUDA input to the flash kernels only where they take
+    it; head_dim 16, fp16 and b * h = 65536 go to the reference (the JAX
+    flash op computes any of them), as does any window."""
+    takes = tattn.flash_takes
+    assert takes((1, 2048, 32, 128), torch.bfloat16)  # the main path
+    assert takes((2, 512, 16, 64), torch.float32)
+    assert takes((1, 256, 65535, 64), torch.bfloat16)
+    assert not takes((1, 256, 4, 16), torch.float32)    # LlamaConfig.tiny
+    assert not takes((1, 256, 32, 128), torch.float16)
+    assert not takes((1, 256, 32, 128), torch.float64)
+    assert not takes((2, 256, 32768, 64), torch.bfloat16)  # b * h = 65536
+    assert not takes((1, 256, 65536, 128), torch.float32)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_matches_pallas_interpret(causal):
     """K1's plain version against the Pallas forward in interpret mode,
