@@ -9,11 +9,14 @@ Phases, each printing one JSON line:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch, CUDA
    and nvcc versions, and the build of every CUDA kernel from the
-   repository's own sources (all nvcc processes started together).
+   repository's own sources (all nvcc processes started together), with
+   each kernel's registers and spill bytes from ptxas; the tensor-core
+   kernels must not spill.
 2. ``kernel``: each kernel against its plain PyTorch version on the card,
    per case one line for K1 (the flash forward) and one for K2/K3 (its
    backward), with the kernels', the plain version's and one library
-   call's time, and the least time the card could take.
+   call's time, the least time the card could take, and what a kernel is
+   judged by beside its time: TFLOP/s and the share of its bound.
    Then K4 (the remote copy) in rings of four ranks on one card: at the
    main-path payload, one Llama-2-7B pipeline-stage activation ([1, 2048,
    4096] bf16, 16 MiB), shifts 1 and 3, and at odd byte counts, each
@@ -59,6 +62,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +143,16 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def attention_flops(b, sq, sk, h, d, causal, flops_per_d=4) -> float:
+    """``flops_per_d * d`` FLOPs per visible (q, k) pair: 4 for K1 (QK^T
+    and PV), 6 for K2, 8 for K3."""
+    if causal:
+        pairs = sum(min(i + 1, sk) for i in range(sq))
+    else:
+        pairs = sq * sk
+    return float(flops_per_d) * d * pairs * b * h
+
+
 def attention_bound(b, sq, sk, h, kv_h, d, dtype, causal, flops_per_d=4,
                     q_sized=2, kv_sized=2, fp32_rows=1):
     """Least time for an attention kernel: each input read once, each
@@ -148,16 +162,18 @@ def attention_bound(b, sq, sk, h, kv_h, d, dtype, causal, flops_per_d=4,
     [b, h, s] ones (lse, D).  K1: 4, 2 (q, O), 2 (k, v), 1 (lse); K2: 6, 3
     (q, dO, dQ), 2, 2 (lse, D); K3: 8, 2 (q, dO), 4 (k, v, dK, dV), 2."""
     esize = 2 if dtype == "bfloat16" else 4
-    if causal:
-        pairs = sum(min(i + 1, sk) for i in range(sq))
-    else:
-        pairs = sq * sk
-    flops = float(flops_per_d) * d * pairs * b * h
+    flops = attention_flops(b, sq, sk, h, d, causal, flops_per_d)
     nbytes = esize * (q_sized * b * sq * h * d + kv_sized * b * sk * kv_h * d) \
         + 4 * fp32_rows * b * h * sq
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rates(flops, ms, bound_ms) -> dict:
+    """What a kernel is judged by beside its time: TFLOP/s achieved and
+    the share of its bound (bound_ms / ms)."""
+    return {"tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
 
 
 def train_flops_per_step(cfg, batch, seq) -> float:
@@ -171,6 +187,36 @@ def train_flops_per_step(cfg, batch, seq) -> float:
     return dense + attn
 
 
+def ptxas_report(text):
+    """``nvcc -Xptxas -v`` output as ``{"kernels": {name<args>: {registers,
+    spill_stores, spill_loads}}, "warnings": [...]}``."""
+    kernels, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"((?:flash|remote)_[a-z_]+?_kernel)(?:I(\w*?)E)?E",
+                          m.group(1))
+            args = (k.group(2) or "").replace("13__nv_bfloat16", "bf16,") \
+                .replace("Li", "") if k else ""
+            if args.startswith("f"):
+                args = "f32," + args[1:]
+            name = (f"{k.group(1)}<{args}>" if args else k.group(1)) if k \
+                else m.group(1)
+            kernels[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            kernels[name].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            kernels[name]["registers"] = int(m.group(1))
+    return {"kernels": kernels,
+            "warnings": [ln.strip() for ln in text.splitlines()
+                         if "warning" in ln.lower()]}
+
+
 def phase_env():
     import torch
 
@@ -182,14 +228,19 @@ def phase_env():
     t0 = time.perf_counter()
     log = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in entry["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_report(entry["ptxas"])
              for name, entry in log.items()}
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nvcc,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "build_s": build_s, "ptxas": ptxas})
+    spills = {k: r for lib in ptxas.values()
+              for k, r in lib["kernels"].items()
+              if "wgmma" in k and (r.get("spill_stores")
+                                   or r.get("spill_loads"))}
+    if spills:
+        raise AssertionError(f"the tensor-core kernels spill: {spills}")
     return smi
 
 
@@ -223,6 +274,8 @@ def phase_kernels():
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         gqa = {"enable_gqa": True} if h != kv_h else {}
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=causal))
+        kernel_ms = [t for n, t in device_times(lambda: flash_attention_fwd(
+            q, k, v, causal=causal), 5).items() if "flash_fwd" in n]
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
                                                          causal=causal), 5)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -233,9 +286,12 @@ def phase_kernels():
                "shape": {"b": b, "s": s, "h": h, "kv_h": kv_h, "d": d},
                "dtype": dtype, "causal": causal,
                "max_abs_err": float(err_o.max()), "lse_max_abs_err": err_lse,
-               "atol_rtol": tol_o, "ms": ms, "plain_ms": plain_ms,
+               "atol_rtol": tol_o, "ms": ms,
+               "kernel_ms": kernel_ms[0] if len(kernel_ms) == 1
+               else "not measured", "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by,
+               **rates(attention_flops(b, s, s, h, d, causal), ms, bound_ms)}
         emit(row)
         do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
         bwd = phase_kernels_bwd(q, k, v, out, lse, do, causal,
@@ -247,6 +303,10 @@ def phase_kernels():
             bwd[f"{kname}_bound_ms"], bwd[f"{kname}_bound_by"] = \
                 attention_bound(b, s, s, h, kv_h, d, dtype, causal,
                                 flops_per_d, q_sized, kv_sized, 2)
+            for key, val in rates(
+                    attention_flops(b, s, s, h, d, causal, flops_per_d),
+                    bwd[f"{kname}_ms"], bwd[f"{kname}_bound_ms"]).items():
+                bwd[f"{kname}_{key}"] = val
         emit(bwd)
         results[name] = {"k1": row, "bwd": bwd}
         del q, k, v, qt, kt, vt, out, lse, pout, plse, err_o, do
@@ -295,13 +355,17 @@ def phase_kernels_bwd(q, k, v, out, lse, do, causal, tol):
         raise AssertionError(f"K2/K3: {', '.join(faults)} disagree with the "
                              f"plain version: {json.dumps(row)}")
     times = device_times(kernels, iters=5)
-    for kname, kernel in (("k2", "flash_bwd_dq_kernel"),
-                          ("k3", "flash_bwd_dkv_kernel")):
-        found = [ms for n, ms in times.items() if kernel in n]
+    # K3: the tensor-core kernel for bf16, the FMA kernel for fp32
+    for kname, names in (("k2", ("flash_bwd_dq_kernel",)),
+                         ("k3", ("flash_bwd_dkv_wgmma_kernel",
+                                 "flash_bwd_dkv_kernel"))):
+        found = [(n, ms) for n, ms in times.items()
+                 if any(x in n for x in names)]
         if len(found) != 1:
-            raise AssertionError(f"no single device time for {kernel} in "
+            raise AssertionError(f"no single device time for {names} in "
                                  f"the profile: {sorted(times)}")
-        row[f"{kname}_ms"] = found[0]
+        row[f"{kname}_kernel"], row[f"{kname}_ms"] = found[0][0][:80], \
+            found[0][1]
     row["bwd_ms"] = cuda_ms(kernels)
     row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
         q, k, v, out, lse, do, causal=causal), 5)
@@ -1136,27 +1200,33 @@ def main() -> int:
                               "train": train["launches"]["K1"]},
          "max_abs_err": row1["max_abs_err"], "ms": row1["ms"],
          "plain_ms": row1["plain_ms"], "bound_ms": row1["bound_ms"],
-         "bound_by": row1["bound_by"], "library_ms": row1["library_ms"]},
+         "bound_by": row1["bound_by"], "library_ms": row1["library_ms"],
+         "tflops": row1["tflops"], "bound_share": row1["bound_share"]},
         {"name": "K2 flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "195",
          "launches": train["launches"]["K2"],
          "max_abs_err": bwd["dq_max_abs_err"], "ms": bwd["k2_ms"],
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["k2_bound_ms"],
-         "bound_by": bwd["k2_bound_by"], "library_ms": bwd["library_ms"]},
+         "bound_by": bwd["k2_bound_by"], "library_ms": bwd["library_ms"],
+         "tflops": bwd["k2_tflops"], "bound_share": bwd["k2_bound_share"]},
         {"name": "K3 flash_bwd_dkv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "232",
          "launches": train["launches"]["K3"],
          "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
          "ms": bwd["k3_ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["k3_bound_ms"], "bound_by": bwd["k3_bound_by"],
-         "library_ms": bwd["library_ms"]},
+         "library_ms": bwd["library_ms"],
+         "tflops": bwd["k3_tflops"], "bound_share": bwd["k3_bound_share"]},
         {"name": "K4 remote_copy", "route": "cuda",
          "source": source + "remote_copy.cu",
          "replaces": "ray_tpu/experimental/channel/transport.py:285",
          "launches": ring["k4_launches"], "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-         "library_ms": k4["library_ms"]}]})
+         "library_ms": k4["library_ms"],
+         "bound_share": (k4["bound_ms"] / k4["ms"]
+                         if isinstance(k4["ms"], float)
+                         else "not measured")}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

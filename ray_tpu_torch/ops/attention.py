@@ -64,17 +64,16 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
-def flash_takes(q_shape, dtype) -> bool:
-    """Whether the CUDA flash kernels take ``q [b, s, h, d]`` of ``dtype``:
-    head_dim 64 or 128, float32 or bfloat16, and b * h within the grid's
-    y limit.  'auto' sends everything else to ``reference_attention``,
-    where the JAX flash op computes any shape."""
-    from ray_tpu_torch.ops.cuda.flash_attention import (_DTYPE_CODE,
-                                                        _HEAD_DIMS,
-                                                        _MAX_GRID_Y)
+def flash_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the CUDA flash kernels take ``q [b, s, h, d]``, ``k`` and
+    ``v``: the same conditions on which their wrappers raise
+    (``kernel_input_problem``: dtype, head_dim, unit stride on d, b * h,
+    and the alignment of the TMA loads).  'auto' sends everything else to
+    ``reference_attention``, where the JAX flash op computes any shape and
+    layout."""
+    from ray_tpu_torch.ops.cuda.flash_attention import kernel_input_problem
 
-    b, _, h, d = q_shape
-    return d in _HEAD_DIMS and dtype in _DTYPE_CODE and b * h <= _MAX_GRID_Y
+    return kernel_input_problem(q, k, v) is None
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,8 +84,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     impl: 'auto' | 'ref' | 'flash'.  'auto' picks the hand-written CUDA
     flash kernels for CUDA inputs with ``seq >= 256``, no window and a
-    shape and dtype the kernels take (``flash_takes``), and the reference
-    otherwise.  'flash' is the differentiable flash op (K1
+    shape, dtype and layout the kernels take (``flash_takes``), and the
+    reference otherwise.  'flash' is the differentiable flash op (K1
     forward, K2/K3 backward); on CPU tensors it runs the kernels' plain
     PyTorch versions.  'ref' is plain autograd.  'ring' and a mesh belong
     to the parallel slice.
@@ -97,7 +96,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "parallel slice of the port (ROADMAP Queue 1, item 7)")
     if impl == "auto":
         impl = ("flash" if q.is_cuda and q.shape[1] >= 256
-                and window is None and flash_takes(q.shape, q.dtype)
+                and window is None and flash_takes(q, k, v)
                 else "ref")
     if impl == "flash":
         if window is not None:

@@ -3,9 +3,13 @@
 Each ``csrc/*.cu`` file compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  Libraries go to ``build/`` beside this file, named
-by a hash of the source and flags, so an edited source rebuilds and an
-unchanged one is reused.  ``build_all()`` starts one ``nvcc`` per source at
-once and waits for all of them; ``load()`` builds on first use.
+by a hash of the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.  Nothing
+links against ``libcuda``: the TMA tensor maps' encoder,
+``cuTensorMapEncodeTiled``, is looked up at run time through the CUDA
+runtime's ``cudaGetDriverEntryPointByVersion`` (``csrc/hopper.cuh``).
+``build_all()`` starts one ``nvcc`` per source at once and waits for all
+of them; ``load()`` builds on first use.
 
 Nothing here runs at import: the CPU tests import this module on machines
 that have no ``nvcc``.
@@ -68,9 +72,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(_HERE, "csrc", SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    csrc = os.path.join(_HERE, "csrc")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in [SOURCES[name], *sorted(f for f in os.listdir(csrc)
+                                         if f.endswith(".cuh"))]:
+        with open(os.path.join(csrc, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -16,35 +16,336 @@
 //
 // Layouts (the Python wrapper checks them):
 //   q, do [b, sq, h, d] and k, v [b, sk, kv_h, d]: any strides on b/s/h,
-//     unit stride on d;
+//     unit stride on d; for bf16 the base and those strides 16-byte
+//     aligned (K3's TMA loads);
 //   lse, delta [b, h, sq] contiguous fp32 (K1's lse layout);
+//   lsed [b * h, 2, nq * 64] fp32, lse then D per head, zero past sq (K3,
+//     bf16: rows of 64 that a bulk copy can take whole);
 //   dq [b, sq, h, d], dk/dv [b, sk, kv_h, d], contiguous.
 //
 // What bounds them on an H100: K2 does 6*d FLOPs and K3 8*d FLOPs per
 // visible (q, k) pair against ~4*d bytes per row, so at the training
-// shapes (s = 2048, d = 128) both are bound by operations.  This first
-// version computes in fp32 FMA on the CUDA cores, as K1 does (no tensor
-// cores: mma/wgmma + TMA are the later, faster design), so its ceiling is
-// the fp32 FMA rate, far below the bf16 tensor-core peak.
+// shapes (s = 2048, d = 128) both are bound by operations: the bf16 tensor
+// cores' 989 TFLOP/s.
+//
+// K3, bf16 (the main path): flash_bwd_dkv_wgmma_kernel.  One block per
+// (b*kv_h, 128-row k-tile); each of its two consumer warpgroups owns 64 k
+// rows and keeps their dK and dV (64 x d fp32 each) in registers.  K and V
+// stay resident in shared memory (bf16, loaded once by TMA); Q and dO
+// tiles of 64 rows with their lse and D rows stream through a three-stage
+// ring (TMA and bulk copies with mbarrier completion; thread 0 refills the
+// stage the previous tile freed) over the n_rep grouped q-heads x the
+// q-tiles from the causal diagonal on.  Everything is computed transposed
+// so that each product is a wgmma with fp32 accumulators:
+//   S^T  = K Q^T          SS, A = K, B = Q K-major
+//   P^T  = exp(S^T * scale - lse[q]) in registers
+//   dV  += bf16(P^T) dO   RS, B = dO MN-major
+//   dP^T = V dO^T         SS, A = V, B = dO K-major
+//   dS^T = P^T * (dP^T - D[q])
+//   dK  += bf16(dS^T) Q   RS, B = Q MN-major
+// dK is scaled once at the end.  The grouped q-heads sum onto their kv
+// head inside the block: race-free, no atomics, as in the Pallas grid.
+// k-tiles are launched heaviest (the causal start) first.
+//
+// K2, and K3 in float32: the first design, fp32 FMA on the CUDA cores (a
+// tensor-core fp32 path would be TF32, which cannot hold the fp32
+// tolerances).  K2: one block owns one (b*h, 64-row q-tile) and loops over
+// the 64-row k-tiles up to the causal diagonal, dQ in registers; K3: one
+// block owns one (b*kv_h, 64-row k-tile) and loops over all n_rep grouped
+// q-heads x the q-tiles from the diagonal on.  Tiles are staged in shared
+// memory as fp32 with rows padded by 4 floats; each thread owns a 4 x 4
+// block of the 64 x 64 score tile and a 4 x (d / 16) block of the output
+// rows.
 //
 // How the TPU design changes here: the Pallas kernels carry dQ (resp. dK,
 // dV) in VMEM scratch across the sequential innermost grid dimension.
-// Thread blocks on Hopper run in no order, so
-//   K2: one block owns one (b*h, 64-row q-tile) and loops over the 64-row
-//       k-tiles up to the causal diagonal, dQ in registers;
-//   K3: one block owns one (b*kv_h, 64-row k-tile) and loops over all
-//       n_rep grouped q-heads x the q-tiles from the diagonal on, dK and dV
-//       in registers.  The GQA reduction stays inside one block, so there
-//       are no atomics and no races, as in the Pallas grid.
-// Tiles are staged in shared memory as fp32 with rows padded by 4 floats
-// (K2 149 KB, K3 167 KB at d = 128); each thread owns a 4 x 4 block of the
-// 64 x 64 score tile and a 4 x (d / 16) block of the output rows.  Ragged
-// edges are masked in the kernel: there are no pad or head-folding copies.
+// Thread blocks on Hopper run in no order, so each block loops over the
+// other side's tiles itself.  Ragged edges are masked in the kernels:
+// there are no pad or head-folding copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ---- K3, bf16: wgmma + TMA ------------------------------------------------
+
+namespace wg {
+
+constexpr int BKR = 128;    // k rows per block: 64 per consumer warpgroup
+constexpr int BQ = 64;      // q rows per streamed tile
+constexpr int STAGES = 3;   // Q/dO ring depth
+constexpr int NT = 256;
+
+struct Args {
+  CUtensorMap tq, tdo, tk, tv;  // box {64, 1, rows, 1} over [b, s, h, d]
+  const float* lsed;            // [b * h, 2, nq * BQ]
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int sq, sk, h, kvh, n_rep, causal, nq;
+  float scale;
+};
+
+template <int D>
+struct Smem {
+  static constexpr uint32_t KV_BYTES = BKR * D * 2;  // [D/64][BKR][64]
+  static constexpr uint32_t TILE = BQ * D * 2;       // [D/64][BQ][64]
+  static constexpr uint32_t STAGE_BYTES = 2 * TILE;  // Q then dO
+  static constexpr uint32_t STAGE0 = 2 * KV_BYTES;   // after K and V
+  static constexpr uint32_t ROWS = STAGE0 + STAGES * STAGE_BYTES;
+  static constexpr uint32_t BAR = ROWS + STAGES * 2 * BQ * 4;
+  static constexpr uint32_t TOTAL = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// streamed tile i of the block: grouped head i / nqb, q-tile qt0 + i % nqb
+template <int D>
+__device__ __forceinline__ void issue_tile(const Args& a, uint8_t* stage,
+                                           float* rows, uint64_t* full,
+                                           int i, int qt0, int nqb, int bi,
+                                           int kvi) {
+  using S = Smem<D>;
+  const int hi = kvi * a.n_rep + i / nqb;
+  const int q0 = (qt0 + i % nqb) * BQ;
+  const long long bh = static_cast<long long>(bi) * a.h + hi;
+  hopper::mbar_arrive_expect_tx(full, S::STAGE_BYTES + 2 * BQ * 4);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    hopper::tma_load_4d(stage + c * BQ * 128, &a.tq, full, 64 * c, hi, q0,
+                        bi);
+    hopper::tma_load_4d(stage + S::TILE + c * BQ * 128, &a.tdo, full, 64 * c,
+                        hi, q0, bi);
+  }
+  const float* src = a.lsed + bh * 2 * a.nq * BQ + q0;
+  hopper::bulk_load(rows, src, BQ * 4, full);
+  hopper::bulk_load(rows + BQ, src + a.nq * BQ, BQ * 4, full);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ Args a) {
+  using S = Smem<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sk = smem;
+  uint8_t* sv = smem + S::KV_BYTES;
+  uint8_t* sst = smem + S::STAGE0;
+  float* srows = reinterpret_cast<float*>(smem + S::ROWS);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // consumer warpgroup: k rows 64 wgi ..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int bi = blockIdx.x / a.kvh;
+  const int kvi = blockIdx.x % a.kvh;
+  const int k0 = blockIdx.y * BKR;
+  // q-tiles wholly above the diagonal see none of this k-tile
+  const int qt0 = a.causal ? k0 / BQ : 0;
+  const int nqb = max(a.nq - qt0, 0);
+  const int n_tiles = a.n_rep * nqb;
+
+  if (tid == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], NT);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_arrive_expect_tx(kv_bar, 2 * S::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      hopper::tma_load_4d(sk + c * BKR * 128, &a.tk, kv_bar, 64 * c, kvi, k0,
+                          bi);
+      hopper::tma_load_4d(sv + c * BKR * 128, &a.tv, kv_bar, 64 * c, kvi, k0,
+                          bi);
+    }
+    for (int s = 0; s < STAGES && s < n_tiles; ++s)
+      issue_tile<D>(a, sst + s * S::STAGE_BYTES, srows + s * 2 * BQ,
+                    &full[s], s, qt0, nqb, bi, kvi);
+  }
+
+  // k rows of this thread: r_lo and r_lo + 8 (the accumulator layout)
+  const int kr0 = k0 + 64 * wgi;  // this warpgroup's first k row
+  const int r_lo = kr0 + 16 * warp + lane / 4;
+  const int c_lo = 2 * (lane % 4);
+  const uint32_t k_base = hopper::smem_u32(sk) + wgi * 64 * 128;
+  const uint32_t v_base = hopper::smem_u32(sv) + wgi * 64 * 128;
+  const float sl2 = a.scale * hopper::LOG2E;
+  float dk[D / 2], dv[D / 2];
+  hopper::zero(dk);
+  hopper::zero(dv);
+  hopper::mbar_wait(kv_bar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    if (tid == 0 && i >= 1 && i + STAGES - 1 < n_tiles) {
+      // refill the stage tile i - 1 used, once both warpgroups freed it
+      const int ps = (i - 1) % STAGES;
+      hopper::mbar_wait(&empty[ps], ((i - 1) / STAGES) & 1);
+      issue_tile<D>(a, sst + ps * S::STAGE_BYTES, srows + ps * 2 * BQ,
+                    &full[ps], i + STAGES - 1, qt0, nqb, bi, kvi);
+    }
+    __syncwarp();
+    const int q0 = (qt0 + i % nqb) * BQ;
+    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+    // every q row of the tile before this warpgroup's k rows: no work
+    const bool skip = a.causal && q0 + BQ - 1 < kr0;
+    if (!skip) {
+      const uint32_t q_base = hopper::smem_u32(sst + s * S::STAGE_BYTES);
+      const uint32_t do_base = q_base + S::TILE;
+      const float* lse_s = srows + s * 2 * BQ;
+      const float* dd_s = lse_s + BQ;
+
+      float st[BQ / 2];  // S^T, then P^T, then dS^T: rows k, columns q
+      hopper::zero(st);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        hopper::wgmma_m64n64k16_ss<0>(
+            st, hopper::desc_k_major(k_base, BKR * 128, ks),
+            hopper::desc_k_major(q_base, BQ * 128, ks), ks > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+
+      const bool masked = (a.causal && q0 < kr0 + 63) || q0 + BQ > a.sq ||
+                          kr0 + 64 > a.sk;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + c_lo + c;
+          const float neg_lse = -lse_s[col] * hopper::LOG2E;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float& x = st[4 * j + 2 * r + c];
+            x = exp2f(fmaf(x, sl2, neg_lse));
+            if (masked) {
+              const int qp = q0 + col, kp = r_lo + 8 * r;
+              if (qp >= a.sq || kp >= a.sk || (a.causal && qp < kp)) x = 0.f;
+            }
+          }
+        }
+      uint32_t pf[BQ / 16][4];  // bf16(P^T): A of dV += P^T dO
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        hopper::acc_to_a_frag(st, kk, pf[kk]);
+      float dp[BQ / 2];  // dP^T = V dO^T
+      hopper::zero(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        if constexpr (D == 128)
+          hopper::wgmma_m64n128k16_rs<1>(
+              dv, pf[kk], hopper::desc_mn_major(do_base, BQ * 128, kk), 1);
+        else
+          hopper::wgmma_m64n64k16_rs<1>(
+              dv, pf[kk], hopper::desc_mn_major(do_base, BQ * 128, kk), 1);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        hopper::wgmma_m64n64k16_ss<0>(
+            dp, hopper::desc_k_major(v_base, BKR * 128, ks),
+            hopper::desc_k_major(do_base, BQ * 128, ks), ks > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      hopper::fence_regs(dv);
+
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dd = dd_s[8 * j + c_lo + c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r + c;
+            st[e] = st[e] * (dp[e] - dd);
+          }
+        }
+      uint32_t dsf[BQ / 16][4];  // bf16(dS^T): A of dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        hopper::acc_to_a_frag(st, kk, dsf[kk]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        if constexpr (D == 128)
+          hopper::wgmma_m64n128k16_rs<1>(
+              dk, dsf[kk], hopper::desc_mn_major(q_base, BQ * 128, kk), 1);
+        else
+          hopper::wgmma_m64n64k16_rs<1>(
+              dk, dsf[kk], hopper::desc_mn_major(q_base, BQ * 128, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk);
+    }
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = r_lo + 8 * r;
+    if (kp >= a.sk) continue;
+    const long long row =
+        ((static_cast<long long>(bi) * a.sk + kp) * a.kvh + kvi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + c_lo;
+      *reinterpret_cast<uint32_t*>(a.dk + row + col) = hopper::pack_bf16(
+          a.scale * dk[4 * j + 2 * r], a.scale * dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(a.dv + row + col) =
+          hopper::pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lsed, void* dk,
+                       void* dv, int b, int sq, int sk, int h, int kvh,
+                       int causal, const long long* qs, const long long* ks,
+                       const long long* vs, const long long* os, float scale,
+                       cudaStream_t stream) {
+  Args a;
+  if (!hopper::make_bshd_map(&a.tq, q, b, sq, h, D, qs[0], qs[1], qs[2], BQ)
+      || !hopper::make_bshd_map(&a.tdo, dout, b, sq, h, D, os[0], os[1],
+                                os[2], BQ)
+      || !hopper::make_bshd_map(&a.tk, k, b, sk, kvh, D, ks[0], ks[1], ks[2],
+                                BKR)
+      || !hopper::make_bshd_map(&a.tv, v, b, sk, kvh, D, vs[0], vs[1], vs[2],
+                                BKR))
+    return cudaErrorInvalidValue;
+  a.lsed = lsed;
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.sq = sq; a.sk = sk; a.h = h; a.kvh = kvh; a.n_rep = h / kvh;
+  a.causal = causal;
+  a.nq = (sq + BQ - 1) / BQ;
+  a.scale = scale;
+  const int smem = Smem<D>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * kvh, (sk + BKR - 1) / BKR);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---- K2, and K3 in float32: fp32 FMA on the CUDA cores --------------------
 
 constexpr int BQ = 64;   // q rows per tile
 constexpr int BK = 64;   // k rows per tile
@@ -377,45 +678,69 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_kernel(const Params p) {
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, bool dkv, cudaStream_t stream) {
-  if (dkv) {
-    const size_t smem = dkv_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.sk + BK - 1) / BK, p.b * p.kvh);
-    flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(p);
-  } else {
-    const size_t smem = dq_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.sq + BQ - 1) / BQ, p.b * p.h);
-    flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(p);
-  }
+cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+  const size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.sq + BQ - 1) / BQ, p.b * p.h);
+  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-int dispatch(const Params& p, bool dkv, int dtype, int d, void* stream) {
+template <int D>
+cudaError_t launch_dkv_fp32(const Params& p, cudaStream_t stream) {
+  const size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<float, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.sk + BK - 1) / BK, p.b * p.kvh);
+  flash_bwd_dkv_kernel<float, D><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const Params& p, const float* lsed,
+                            cudaStream_t stream) {
+  const long long qs[3] = {p.q_sb, p.q_ss, p.q_sh};
+  const long long ks[3] = {p.k_sb, p.k_ss, p.k_sh};
+  const long long vs[3] = {p.v_sb, p.v_ss, p.v_sh};
+  const long long os[3] = {p.o_sb, p.o_ss, p.o_sh};
+  return wg::launch_dkv<D>(p.q, p.k, p.v, p.dout, lsed, p.dk, p.dv, p.b,
+                           p.sq, p.sk, p.h, p.kvh, p.causal, qs, ks, vs, os,
+                           p.scale, stream);
+}
+
+int dispatch(const Params& p, bool dkv, const float* lsed, int dtype, int d,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 128) return launch<__nv_bfloat16, 128>(p, dkv, st);
-  if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64>(p, dkv, st);
-  if (dtype == 0 && d == 128) return launch<float, 128>(p, dkv, st);
-  if (dtype == 0 && d == 64) return launch<float, 64>(p, dkv, st);
+  if (dkv) {
+    if (dtype == 1 && d == 128) return launch_dkv_bf16<128>(p, lsed, st);
+    if (dtype == 1 && d == 64) return launch_dkv_bf16<64>(p, lsed, st);
+    if (dtype == 0 && d == 128) return launch_dkv_fp32<128>(p, st);
+    if (dtype == 0 && d == 64) return launch_dkv_fp32<64>(p, st);
+  } else {
+    if (dtype == 1 && d == 128) return launch_dq<__nv_bfloat16, 128>(p, st);
+    if (dtype == 1 && d == 64) return launch_dq<__nv_bfloat16, 64>(p, st);
+    if (dtype == 0 && d == 128) return launch_dq<float, 128>(p, st);
+    if (dtype == 0 && d == 64) return launch_dq<float, 64>(p, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // which: 0 = K2 (writes dq), 1 = K3 (writes dk and dv).  dtype: 0 =
-// float32, 1 = bfloat16.  Strides are in elements.  Returns the
+// float32, 1 = bfloat16.  lsed: K3's [b * h, 2, nq * 64] lse and D rows
+// (bf16 only; may be null otherwise).  Strides are in elements.  Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int ray_tpu_flash_bwd(
     int which, const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, void* dk, void* dv,
-    int dtype, int b, int sq, int sk, int h, int kvh, int d, int causal,
+    const float* lse, const float* delta, const float* lsed, void* dq,
+    void* dk, void* dv, int dtype, int b, int sq, int sk, int h, int kvh,
+    int d, int causal,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -430,7 +755,7 @@ extern "C" int ray_tpu_flash_bwd(
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.scale = scale;
-  return dispatch(p, which == 1, dtype, d, stream);
+  return dispatch(p, which == 1, lsed, dtype, d, stream);
 }
 
 extern "C" const char* ray_tpu_flash_bwd_error_string(int err) {

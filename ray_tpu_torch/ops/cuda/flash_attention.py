@@ -8,7 +8,10 @@
 Each source is CUDA C++ for sm_90a, built on first use by ``_build.py``
 and called through its plain C interface with ``ctypes``; the note at the
 top of each says what bounds the kernel on an H100 and how the TPU design
-changes.
+changes.  bfloat16 inputs (the main path) take K1 and K3 on the tensor
+cores (wgmma, with TMA tile loads; ``csrc/hopper.cuh``); float32 inputs,
+and K2 in both types, take the first design, fp32 FMA on the CUDA cores.
+``kernel_input_problem`` says which inputs the kernels take.
 
 ``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the same
 functions in plain PyTorch: the CPU tests use them, and ``chip_smoke.py``
@@ -29,7 +32,7 @@ does not replay K1.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,7 +40,9 @@ from ray_tpu_torch.ops.attention import _NEG_INF, _repeat_kv
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_MAX_GRID_Y = 65535  # b * h: the kernels' grid y dimension
+_MAX_GRID_Y = 65535  # b * h: the fp32 kernels' and K2's grid y dimension
+_TMA_ALIGN = 16      # bytes: TMA's alignment of base addresses and strides
+_K3_ROWS = 64        # q rows per tile of K3's bf16 kernel
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,18 +94,53 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{v.device}")
 
 
-def _check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
+def _bshd_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """Element strides of a [b, s, h, d] tensor on b, s and h as the
+    kernels take them.  A dimension of size 1 is never stepped, so it gets
+    the stride a contiguous tensor would have (torch may report any)."""
+    _, s, h, d = t.shape
+    sb, ss, sh = t.stride()[:3]
+    if h == 1:
+        sh = d
+    if s == 1:
+        ss = sh * h
+    if t.shape[0] == 1:
+        sb = ss * s
+    return sb, ss, sh
+
+
+def kernel_input_problem(*tensors: torch.Tensor) -> Optional[str]:
+    """Why the CUDA flash kernels do not take these [b, s, h, d] tensors
+    (q first, all of one dtype), or None if they do: float32 or bfloat16,
+    head_dim 64 or 128, unit stride on the head dimension, b * h within
+    the grid's y limit, and for bfloat16 (the TMA loads of K1 and K3) a
+    16-byte aligned base and b/s/h strides.  ``_check_kernel_inputs``
+    raises with this reason; ``ops.attention.flash_takes`` sends what it
+    names to the reference attention."""
     q = tensors[0]
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+        return f"takes float32 or bfloat16, got {q.dtype}"
     if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f"{name} takes head_dim in {_HEAD_DIMS}, got "
-                         f"{q.shape[3]}")
+        return f"takes head_dim in {_HEAD_DIMS}, got {q.shape[3]}"
     if any(t.stride(3) != 1 for t in tensors):
-        raise ValueError(f"{name} needs unit stride on the head dimension")
+        return "needs unit stride on the head dimension"
     if q.shape[0] * q.shape[2] > _MAX_GRID_Y:
-        raise ValueError(f"b * h = {q.shape[0] * q.shape[2]} exceeds the "
-                         "grid's y limit")
+        return (f"b * h = {q.shape[0] * q.shape[2]} exceeds the grid's y "
+                "limit")
+    if q.dtype == torch.bfloat16:
+        esize = q.element_size()
+        for t in tensors:
+            if t.data_ptr() % _TMA_ALIGN or any(
+                    st * esize % _TMA_ALIGN for st in _bshd_strides(t)):
+                return ("takes bfloat16 only with a 16-byte aligned base "
+                        "and b/s/h strides (TMA loads)")
+    return None
+
+
+def _check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
+    problem = kernel_input_problem(*tensors)
+    if problem is not None:
+        raise ValueError(f"{name} {problem}")
 
 
 def _lib() -> ctypes.CDLL:
@@ -130,8 +170,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.ray_tpu_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPE_CODE[q.dtype], b, sq, sk, h, kv_h, d,
-            int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            d ** -0.5, stream)
+            int(causal), *_bshd_strides(q), *_bshd_strides(k),
+            *_bshd_strides(v), d ** -0.5, stream)
     if err:
         raise RuntimeError("K1 flash_fwd launch failed: "
                            + lib.ray_tpu_cuda_error_string(err).decode())
@@ -143,8 +183,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [b, sq, h, d], lse [b, h, sq] fp32)``.  CUDA tensors launch
-    K1 (head_dim 64 or 128, float32 or bfloat16; anything else raises);
-    CPU tensors run ``flash_attention_plain``."""
+    K1 (what ``kernel_input_problem`` names raises); CPU tensors run
+    ``flash_attention_plain``."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -203,7 +243,7 @@ def _bwd_lib() -> ctypes.CDLL:
     if not lib.ray_tpu_flash_bwd.argtypes:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ray_tpu_flash_bwd.argtypes = (
-            [i32] + [ptr] * 9 + [i32] * 8 + [i64] * 12
+            [i32] + [ptr] * 10 + [i32] * 8 + [i64] * 12
             + [ctypes.c_float, ptr])
         lib.ray_tpu_flash_bwd.restype = ctypes.c_int
         lib.ray_tpu_flash_bwd_error_string.argtypes = [ctypes.c_int]
@@ -235,15 +275,24 @@ def _launch_bwd(q, k, v, out, lse, do, causal):
         # D = rowsum(dO * O), as JAX computes it outside the kernels
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()
+        lsed = None
+        if q.dtype == torch.bfloat16:
+            # K3's tiles of lse and D rows: [b * h, 2, whole tiles], zero
+            # past sq, so one bulk copy takes each row of a tile
+            width = -(-sq // _K3_ROWS) * _K3_ROWS
+            lsed = lse.new_zeros((b * h, 2, width))
+            lsed[:, 0, :sq] = lse.reshape(b * h, sq)
+            lsed[:, 1, :sq] = delta.reshape(b * h, sq)
         dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
         dk = torch.empty((b, sk, kv_h, d), dtype=k.dtype, device=q.device)
         dv = torch.empty((b, sk, kv_h, d), dtype=v.dtype, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
+                None if lsed is None else lsed.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, sq,
-                sk, h, kv_h, d, int(causal), *q.stride()[:3],
-                *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                sk, h, kv_h, d, int(causal), *_bshd_strides(q),
+                *_bshd_strides(k), *_bshd_strides(v), *_bshd_strides(do),
                 d ** -0.5, stream)
         _raise_on(lib, lib.ray_tpu_flash_bwd(0, *args), "K2 flash_bwd dq")
         flash_attention_bwd.dq_launches += 1
@@ -258,8 +307,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of flash attention from the forward's residuals
     ``out`` and ``lse [b, h, sq] fp32`` and the output grad ``do``.  CUDA
-    tensors launch K2 then K3 (head_dim 64 or 128, float32 or bfloat16;
-    anything else raises); CPU tensors run ``flash_attention_bwd_plain``."""
+    tensors launch K2 then K3 (what ``kernel_input_problem`` names
+    raises); CPU tensors run ``flash_attention_bwd_plain``."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do,

@@ -11,15 +11,20 @@ import torch
 
 from ray_tpu_torch.ops.cuda import flash_attention as flash
 
-BWD_ATOL = (2e-3, 8e-3, 1.6e-2)  # dq, dk, dv
+# chip_smoke.py's BWD_TOL: per output (dq, dk, dv) atol, rtol and relative
+# L2 limit, bf16 and fp32
+BWD_ATOL = (2e-3, 8e-3, 1.6e-2)
+BWD_ATOL_FP32 = (2e-6, 2.5e-5, 5e-5)
 
 
-def assert_bwd_close(got, want, atol):
+def assert_bwd_close(got, want, atol, dtype=torch.bfloat16):
+    rtol, rel_l2_max = ((2 ** -7, 1e-3) if dtype == torch.bfloat16
+                        else (1e-5, 1e-5))
     got, want = got.float(), want.float()
-    torch.testing.assert_close(got, want, atol=atol, rtol=2 ** -7)
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     rel_l2 = torch.linalg.vector_norm(got - want) \
         / torch.linalg.vector_norm(want)
-    assert rel_l2 <= 1e-3, rel_l2
+    assert rel_l2 <= rel_l2_max, rel_l2
 
 
 @pytest.mark.gpu
@@ -99,6 +104,112 @@ def test_auto_attention_head_dim_16_on_card():
     torch.testing.assert_close(got, reference_attention(q, k, v),
                                atol=2e-2, rtol=2e-2)
     with pytest.raises(ValueError, match="head_dim"):
+        dot_product_attention(q, k, v, impl="flash")
+
+
+# (b, s, h, kv_h, d, dtype, causal, layout): "contiguous" [b, s, h, d];
+# "head_slices", heads sliced out of one wider [b, s, heads, d] tensor;
+# "head_major", [b, h, s, d] storage seen as [b, s, h, d]
+KERNEL_CASES = {
+    "bf16_causal_s300": (1, 300, 8, 8, 128, torch.bfloat16, True,
+                         "contiguous"),
+    "bf16_causal_s1000": (1, 1000, 4, 4, 128, torch.bfloat16, True,
+                          "contiguous"),
+    "bf16_gqa_nrep4": (1, 512, 16, 4, 128, torch.bfloat16, True,
+                       "contiguous"),
+    "bf16_non_causal_d64": (2, 333, 4, 4, 64, torch.bfloat16, False,
+                            "contiguous"),
+    "bf16_head_slices": (2, 320, 4, 2, 128, torch.bfloat16, True,
+                         "head_slices"),
+    "bf16_head_major": (2, 300, 8, 2, 128, torch.bfloat16, True,
+                        "head_major"),
+    "fp32_fma": (1, 300, 4, 2, 128, torch.float32, True, "contiguous"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_flash_kernels_match_plain_across_layouts_on_card(case):
+    """K1, K2 and K3 against their plain versions at the tolerances of
+    ``chip_smoke.py`` (K1: bf16 O atol = rtol = 2e-2, lse 1e-3; fp32 1e-4;
+    K2/K3: ``BWD_TOL``): ragged causal lengths, GQA, non-causal d=64, q/k/v
+    that are strided views with unit d-stride (head slices of one wider
+    tensor, head-major storage), and fp32, which takes the FMA kernels.
+    One autograd step of ``flash_attention`` launches each kernel once and
+    matches the plain gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1-K3 have no CPU or interpret "
+                    "mode")
+    b, s, h, kv_h, d, dtype, causal, layout = KERNEL_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    if layout == "head_slices":
+        qkv = randn(b, s, h + 2 * kv_h + 2, d)
+        q, k, v = (qkv[:, :, :h], qkv[:, :, h:h + kv_h],
+                   qkv[:, :, h + kv_h:h + 2 * kv_h])
+    elif layout == "head_major":
+        q, k, v = (randn(b, heads, s, d).transpose(1, 2)
+                   for heads in (h, kv_h, kv_h))
+    else:
+        q, k, v = (randn(b, s, h, d), randn(b, s, kv_h, d),
+                   randn(b, s, kv_h, d))
+    assert q.is_contiguous() == (layout == "contiguous") and q.stride(3) == 1
+    do = randn(b, s, h, d)
+    counts = (flash.flash_attention_fwd.launches,
+              flash.flash_attention_bwd.dq_launches,
+              flash.flash_attention_bwd.dkv_launches)
+    out, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+    got = flash.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    pout, plse = flash.flash_attention_plain(q, k, v, causal=causal)
+    want = flash.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                           causal=causal)
+    if dtype == torch.bfloat16:
+        tol_o, tol_lse, atols = 2e-2, 1e-3, BWD_ATOL
+    else:
+        tol_o, tol_lse, atols = 1e-4, 1e-4, BWD_ATOL_FP32
+    torch.testing.assert_close(out.float(), pout.float(), atol=tol_o,
+                               rtol=tol_o)
+    torch.testing.assert_close(lse, plse, atol=tol_lse, rtol=0)
+    for a, w, atol in zip(got, want, atols):
+        assert_bwd_close(a, w, atol, dtype)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    flash.flash_attention(qg, kg, vg, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    assert (flash.flash_attention_fwd.launches,
+            flash.flash_attention_bwd.dq_launches,
+            flash.flash_attention_bwd.dkv_launches) == tuple(
+                c + 2 for c in counts)  # the direct calls and the step
+    for grad, w, atol in zip((qg.grad, kg.grad, vg.grad), want, atols):
+        assert_bwd_close(grad, w, atol, dtype)
+
+
+@pytest.mark.gpu
+def test_auto_attention_d_strided_on_card():
+    """'auto' on a bf16 input whose head dimension is strided (s=256, where
+    'auto' would pick the flash kernels) computes through the reference
+    instead of raising, and matches ``reference_attention`` within K1's
+    tolerance; an explicit ``impl='flash'`` still raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tpu_torch.ops.attention import (dot_product_attention,
+                                             reference_attention)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    wide = torch.randn(1, 256, 12, 256, generator=gen,
+                       device="cuda").bfloat16()
+    q, k, v = wide[:, :, :8, ::2], wide[:, :, 8:10, ::2], wide[:, :, 10:, ::2]
+    assert q.shape == (1, 256, 8, 128) and q.stride(3) == 2
+    before = flash.flash_attention_fwd.launches
+    got = dot_product_attention(q, k, v, causal=True)
+    assert flash.flash_attention_fwd.launches == before
+    torch.testing.assert_close(got.float(),
+                               reference_attention(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="unit stride"):
         dot_product_attention(q, k, v, impl="flash")
 
 

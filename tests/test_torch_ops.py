@@ -4,6 +4,9 @@ Inputs are made with numpy from a seed and fed to both packages.  Float32
 throughout unless a case says otherwise; each tolerance states its reason.
 """
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -153,9 +156,15 @@ def test_dot_product_attention_dispatch(monkeypatch):
 
 def test_auto_flash_eligibility_predicate():
     """'auto' sends a CUDA input to the flash kernels only where they take
-    it; head_dim 16, fp16 and b * h = 65536 go to the reference (the JAX
-    flash op computes any of them), as does any window."""
-    takes = tattn.flash_takes
+    it; head_dim 16, fp16, b * h = 65536, a non-unit stride on d and (for
+    bf16, whose K1 and K3 load tiles by TMA) a base or stride off 16 bytes
+    go to the reference (the JAX flash op computes any of them), as does
+    any window.  The predicate and the wrappers' check are one function,
+    so what it refuses the kernels raise on, with the same reason."""
+    def takes(shape, dtype):
+        q = torch.empty(shape, dtype=dtype, device="meta")
+        return tattn.flash_takes(q, q, q)
+
     assert takes((1, 2048, 32, 128), torch.bfloat16)  # the main path
     assert takes((2, 512, 16, 64), torch.float32)
     assert takes((1, 256, 65535, 64), torch.bfloat16)
@@ -164,6 +173,53 @@ def test_auto_flash_eligibility_predicate():
     assert not takes((1, 256, 32, 128), torch.float64)
     assert not takes((2, 256, 32768, 64), torch.bfloat16)  # b * h = 65536
     assert not takes((1, 256, 65536, 128), torch.float32)
+    # layouts, on real tensors: the predicate reads strides and addresses
+    qkv = torch.zeros(1, 256, 12, 128, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert tattn.flash_takes(q, k, v)  # heads sliced out: unit d-stride
+    d_strided = torch.zeros(1, 256, 4, 256, dtype=torch.bfloat16)[..., ::2]
+    assert d_strided.shape[3] == 128 and d_strided.stride(3) == 2
+    assert not tattn.flash_takes(d_strided, k[:, :, :1], v[:, :, :1])
+    assert not tattn.flash_takes(q, d_strided, d_strided)
+    flat = torch.zeros(256 * 4 * 128 + 1, dtype=torch.bfloat16)
+    off_base = flat[1:].view(1, 256, 4, 128)  # base 2 bytes past 16
+    assert not tattn.flash_takes(off_base, k, v)
+    odd_rows = torch.zeros(1, 256, 4, 129, dtype=torch.bfloat16)[..., :128]
+    assert odd_rows.stride()[:3] == (256 * 4 * 129, 4 * 129, 129)
+    assert not tattn.flash_takes(odd_rows, k, v)  # 258-byte head stride
+    # fp32 keeps the FMA kernels, which take any stride but d's
+    odd32 = torch.zeros(1, 256, 4, 129)[..., :128]
+    kf, vf = k.float(), v.float()
+    assert tattn.flash_takes(odd32, kf, vf)
+    assert tattn.flash_takes(torch.zeros(256 * 4 * 128 + 1)[1:]
+                             .view(1, 256, 4, 128), kf, vf)
+    assert not tattn.flash_takes(torch.zeros(1, 256, 4, 256)[..., ::2], kf,
+                                 vf)
+    for bad in (d_strided, off_base, odd_rows):
+        reason = tflash.kernel_input_problem(bad, k, v)
+        with pytest.raises(ValueError, match=reason.split("(")[0]):
+            tflash._check_kernel_inputs("K1", bad, k, v)
+
+
+def test_kernel_library_rebuilds_on_header_edit(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its source, every
+    ``csrc/*.cuh`` header and the flags: editing the shared Hopper header
+    renames every library (so a stale build is never loaded), and editing
+    one source renames only its own."""
+    csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
+    shutil.copytree(csrc, tmp_path / "csrc")
+    monkeypatch.setattr(_build, "_HERE", str(tmp_path))
+    before = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert before == {n: _build._lib_path(n) for n in _build.SOURCES}
+    with open(tmp_path / "csrc" / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+    with open(tmp_path / "csrc" / _build.SOURCES["flash_fwd"], "a") as f:
+        f.write("\n// edited\n")
+    again = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert [n for n in _build.SOURCES if again[n] != after[n]] \
+        == ["flash_fwd"]
 
 
 @pytest.mark.parametrize("causal", [True, False])
