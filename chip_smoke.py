@@ -16,11 +16,14 @@ Phases, each printing one JSON line:
    per case one line for K1 (the flash forward) and one for K2/K3 (its
    backward), with the kernels', the plain version's and one library
    call's time, the least time the card could take, and what a kernel is
-   judged by beside its time: TFLOP/s and the share of its bound.
-   Then K4 (the remote copy) in rings of four ranks on one card: at the
-   main-path payload, one Llama-2-7B pipeline-stage activation ([1, 2048,
-   4096] bf16, 16 MiB), shifts 1 and 3, and at odd byte counts, each
-   bit-exact against ``copy_`` with one launch per hop; with two cards and
+   judged by beside its time: TFLOP/s and the share of its bound.  By
+   the profiler's kernel names, bf16 must run K2 and K3 on the tensor-core
+   (wgmma) kernels and fp32 on the FMA kernels; for bf16, how many dq
+   elements a bf16 flip of dS moved, the kernel's beside the plain
+   version's (``dq_flipped_vs_exact``).  Then K4 (the remote copy) in
+   rings of four ranks on one card: at the main-path payload, one
+   Llama-2-7B pipeline-stage activation ([1, 2048, 4096] bf16, 16 MiB),
+   shifts 1 and 3, and at odd byte counts, each bit-exact against ``copy_`` with one launch per hop; with two cards and
    peer access, also the ring over NVLink, else a line saying why not.
 3. ``small_reference``: small fp32 models on the card against a plain
    reference: the forward through K1 against the reference attention,
@@ -318,10 +321,10 @@ def phase_kernels_bwd(q, k, v, out, lse, do, causal, tol):
     """K2 and K3 (through ``flash_attention_bwd``) against
     ``flash_attention_bwd_plain`` on the same residuals, within ``tol``
     (an entry of ``BWD_TOL``) on dq, dk and dv; each kernel's device time
-    by name (torch.profiler), the wrapper's (D = rowsum(dO * O) and both
-    launches), the plain version's, and SDPA's backward (forward+backward
-    minus forward, flash backend where it takes the inputs) as the
-    library yardstick."""
+    by name (torch.profiler; each must be the design its dtype takes),
+    the wrapper's (D = rowsum(dO * O) and both launches), the plain
+    version's, and SDPA's backward (forward+backward minus forward, flash
+    backend where it takes the inputs) as the library yardstick."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -354,9 +357,16 @@ def phase_kernels_bwd(q, k, v, out, lse, do, causal, tol):
     if faults:
         raise AssertionError(f"K2/K3: {', '.join(faults)} disagree with the "
                              f"plain version: {json.dumps(row)}")
+    if q.dtype == torch.bfloat16:
+        row["dq_flipped_vs_exact"] = dq_flipped_vs_exact(
+            q, k, v, out, lse, do, causal,
+            {"kernel": got[0], "plain": want[0]})
     times = device_times(kernels, iters=5)
-    # K3: the tensor-core kernel for bf16, the FMA kernel for fp32
-    for kname, names in (("k2", ("flash_bwd_dq_kernel",)),
+    # each kernel by either name: the tensor-core kernel, which bf16 must
+    # launch, or the FMA kernel, which fp32 must launch
+    want_design = "wgmma" if q.dtype == torch.bfloat16 else "fma"
+    for kname, names in (("k2", ("flash_bwd_dq_wgmma_kernel",
+                                 "flash_bwd_dq_kernel")),
                          ("k3", ("flash_bwd_dkv_wgmma_kernel",
                                  "flash_bwd_dkv_kernel"))):
         found = [(n, ms) for n, ms in times.items()
@@ -364,8 +374,13 @@ def phase_kernels_bwd(q, k, v, out, lse, do, causal, tol):
         if len(found) != 1:
             raise AssertionError(f"no single device time for {names} in "
                                  f"the profile: {sorted(times)}")
+        design = "wgmma" if "wgmma" in found[0][0] else "fma"
+        if design != want_design:
+            raise AssertionError(f"{q.dtype} launched {found[0][0]}, not "
+                                 f"the {want_design} kernel")
         row[f"{kname}_kernel"], row[f"{kname}_ms"] = found[0][0][:80], \
             found[0][1]
+        row[f"{kname}_design"] = design
     row["bwd_ms"] = cuda_ms(kernels)
     row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
         q, k, v, out, lse, do, causal=causal), 5)
@@ -383,6 +398,39 @@ def phase_kernels_bwd(q, k, v, out, lse, do, causal, tol):
     row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         library_fwd(), (qt, kt, vt), dot)) - cuda_ms(library_fwd)
     return row
+
+
+def dq_flipped_vs_exact(q, k, v, out, lse, do, causal, dqs):
+    """How many elements of each bf16 dq in ``dqs`` stand further from dq
+    built on exact dS than the output's own rounding allows (2^-8 |w| +
+    5e-4).  Exact: S, dP and dS in fp64 from the same bf16 inputs, lse and
+    D, dS rounded once to bf16, then dS K in fp64.  dS is rounded to bf16
+    before dS K, so a large dS whose fp32 value lands on the other side of
+    a rounding midpoint moves its whole row of dq: this counts the rows'
+    elements so moved, for the kernel beside the plain version."""
+    import torch
+
+    b, s, h, d = q.shape
+    n_rep = h // k.shape[2]
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    visible = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        visible = visible.tril()
+    counts = dict.fromkeys(dqs, 0)
+    for bi in range(b):
+        for hi in range(h):
+            qh, doh = q[bi, :, hi].double(), do[bi, :, hi].double()
+            kh = k[bi, :, hi // n_rep].double()
+            vh = v[bi, :, hi // n_rep].double()
+            p = torch.exp((qh @ kh.T) * d ** -0.5
+                          - lse[bi, hi].double()[:, None])
+            ds = torch.where(visible, p, 0.0) * (
+                doh @ vh.T - delta[bi, hi].double()[:, None])
+            w = (ds.to(q.dtype).double() @ kh) * d ** -0.5
+            for name, dq in dqs.items():
+                err = (dq[bi, :, hi].double() - w).abs()
+                counts[name] += int((err > 2 ** -8 * w.abs() + 5e-4).sum())
+    return counts
 
 
 def activation_shards(device="cuda", n=RING_RANKS, shape=ACTIVATION,
@@ -1204,8 +1252,10 @@ def main() -> int:
          "tflops": row1["tflops"], "bound_share": row1["bound_share"]},
         {"name": "K2 flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "195",
-         "launches": train["launches"]["K2"],
-         "max_abs_err": bwd["dq_max_abs_err"], "ms": bwd["k2_ms"],
+         "design": bwd["k2_design"], "launches": train["launches"]["K2"],
+         "max_abs_err": bwd["dq_max_abs_err"],
+         "dq_flipped_vs_exact": bwd["dq_flipped_vs_exact"],
+         "ms": bwd["k2_ms"],
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["k2_bound_ms"],
          "bound_by": bwd["k2_bound_by"], "library_ms": bwd["library_ms"],
          "tflops": bwd["k2_tflops"], "bound_share": bwd["k2_bound_share"]},

@@ -17,7 +17,7 @@
 // Layouts (the Python wrapper checks them):
 //   q, do [b, sq, h, d] and k, v [b, sk, kv_h, d]: any strides on b/s/h,
 //     unit stride on d; for bf16 the base and those strides 16-byte
-//     aligned (K3's TMA loads);
+//     aligned (K2's and K3's TMA loads);
 //   lse, delta [b, h, sq] contiguous fp32 (K1's lse layout);
 //   lsed [b * h, 2, nq * 64] fp32, lse then D per head, zero past sq (K3,
 //     bf16: rows of 64 that a bulk copy can take whole);
@@ -47,7 +47,29 @@
 // head inside the block: race-free, no atomics, as in the Pallas grid.
 // k-tiles are launched heaviest (the causal start) first.
 //
-// K2, and K3 in float32: the first design, fp32 FMA on the CUDA cores (a
+// K2, bf16 (the main path): flash_bwd_dq_wgmma_kernel.  One block per
+// (b*h, 128-row q-tile), b*h on grid x, q-tiles launched heaviest (the
+// causal diagonal's far end) first; each of its two consumer warpgroups
+// owns 64 q rows and keeps their dQ (64 x d fp32) in registers, with the
+// lse and D of its two rows per thread read once.  Q and dO stay resident
+// in shared memory (loaded once by TMA); K and V tiles of 64 keys stream
+// through a three-stage TMA ring (thread 0 refills the stage both
+// warpgroups freed) up to the diagonal of the block's last row.  Per tile:
+//   S   = Q K^T           SS, A = Q, B = K K-major
+//   dP  = dO V^T          SS, A = dO, B = V K-major (alternating with S)
+//   dS  = exp(S * scale - lse) * (dP - D) in registers (P not rounded)
+//   dQ += bf16(dS) K      RS, B = the same K tile MN-major
+// S and dP are summed over d one k16 slice at a time, each slice a wgmma
+// into a fresh accumulator added to the sum with round-to-nearest fp32
+// adds.  dS is rounded to bf16 before dS K, and a large dS whose fp32
+// value lands on the other side of a rounding midpoint moves its whole
+// row of dQ; summed over all of d inside the tensor cores, S and dP stand
+// further from their exact values and move many times more rows of dQ
+// than the plain version's fp32 sums (chip_smoke.py's dq_flipped_vs_exact
+// counts them).  Only the diagonal and ragged tiles are masked; dQ is
+// scaled once at the end and rows past sq are not written.
+//
+// K2 and K3 in float32: the first design, fp32 FMA on the CUDA cores (a
 // tensor-core fp32 path would be TF32, which cannot hold the fp32
 // tolerances).  K2: one block owns one (b*h, 64-row q-tile) and loops over
 // the 64-row k-tiles up to the causal diagonal, dQ in registers; K3: one
@@ -345,35 +367,277 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace wg
 
-// ---- K2, and K3 in float32: fp32 FMA on the CUDA cores --------------------
+// ---- K2, bf16: wgmma + TMA ------------------------------------------------
+
+namespace wg_dq {
+
+constexpr int BQ = 128;     // q rows per block: 64 per consumer warpgroup
+constexpr int BK = 64;      // keys per K/V tile
+constexpr int STAGES = 3;   // K/V ring depth
+constexpr int NT = 256;
+
+struct Args {
+  CUtensorMap tq, tdo, tk, tv;  // box {64, 1, rows, 1} over [b, s, h, d]
+  const float* lse;             // [b, h, sq]
+  const float* delta;           // [b, h, sq]
+  __nv_bfloat16* dq;            // [b, sq, h, d], contiguous
+  int sq, sk, h, n_rep, causal, nqt;
+  float scale;
+};
+
+template <int D>
+struct Smem {
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;        // [D/64][BQ][64]
+  static constexpr uint32_t KV_BYTES = BK * D * 2;       // [D/64][BK][64]
+  static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;  // K then V
+  static constexpr uint32_t STAGE0 = 2 * Q_BYTES;        // after Q and dO
+  static constexpr uint32_t BAR = STAGE0 + STAGES * STAGE_BYTES;
+  static constexpr uint32_t TOTAL = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__device__ __forceinline__ void issue_kv(const Args& a, uint8_t* stage,
+                                         uint64_t* full, int kt, int kvi,
+                                         int bi) {
+  using S = Smem<D>;
+  hopper::mbar_arrive_expect_tx(full, S::STAGE_BYTES);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    hopper::tma_load_4d(stage + c * BK * 128, &a.tk, full, 64 * c, kvi,
+                        kt * BK, bi);
+    hopper::tma_load_4d(stage + S::KV_BYTES + c * BK * 128, &a.tv, full,
+                        64 * c, kvi, kt * BK, bi);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ Args a) {
+  using S = Smem<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = smem;
+  uint8_t* sdo = smem + S::Q_BYTES;
+  uint8_t* skv = smem + S::STAGE0;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // consumer warpgroup: q rows 64 wgi ..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int bi = bh / a.h;
+  const int hi = bh % a.h;
+  const int kvi = hi / a.n_rep;
+  const int q0 = (a.nqt - 1 - static_cast<int>(blockIdx.y)) * BQ;
+
+  int nk = (a.sk + BK - 1) / BK;
+  // causal tile skip: up to the diagonal of the block's last real row
+  if (a.causal) nk = min(nk, (min(q0 + BQ, a.sq) - 1) / BK + 1);
+
+  if (tid == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], NT);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_arrive_expect_tx(q_bar, 2 * S::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      hopper::tma_load_4d(sq + c * BQ * 128, &a.tq, q_bar, 64 * c, hi, q0,
+                          bi);
+      hopper::tma_load_4d(sdo + c * BQ * 128, &a.tdo, q_bar, 64 * c, hi, q0,
+                          bi);
+    }
+    for (int s = 0; s < STAGES && s < nk; ++s)
+      issue_kv<D>(a, skv + s * S::STAGE_BYTES, &full[s], s, kvi, bi);
+  }
+
+  // rows of this thread: r_lo and r_lo + 8 (the accumulator layout); their
+  // lse and D, zero past sq
+  const int row0 = q0 + 64 * wgi;  // this warpgroup's first q row
+  const int r_lo = row0 + 16 * warp + lane / 4;
+  const int c_lo = 2 * (lane % 4);
+  float lse[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r_lo + 8 * r;
+    const long long at = static_cast<long long>(bh) * a.sq + qp;
+    lse[r] = qp < a.sq ? a.lse[at] : 0.f;
+    dd[r] = qp < a.sq ? a.delta[at] : 0.f;
+  }
+  const uint32_t q_base = hopper::smem_u32(sq) + wgi * 64 * 128;
+  const uint32_t do_base = hopper::smem_u32(sdo) + wgi * 64 * 128;
+  float dq[D / 2];
+  hopper::zero(dq);
+  hopper::mbar_wait(q_bar, 0);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    if (tid == 0 && kt >= 1 && kt + STAGES - 1 < nk) {
+      // refill the stage tile kt - 1 used, once both warpgroups freed it
+      const int ps = (kt - 1) % STAGES;
+      hopper::mbar_wait(&empty[ps], ((kt - 1) / STAGES) & 1);
+      issue_kv<D>(a, skv + ps * S::STAGE_BYTES, &full[ps], kt + STAGES - 1,
+                  kvi, bi);
+    }
+    __syncwarp();
+    hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
+    const int k0 = kt * BK;
+    // all 64 rows past sq, or every key of the tile past their diagonal
+    const bool skip = row0 >= a.sq || (a.causal && k0 > row0 + 63);
+    if (!skip) {
+      const uint32_t k_base = hopper::smem_u32(skv + s * S::STAGE_BYTES);
+      const uint32_t v_base = k_base + S::KV_BYTES;
+      // S = Q K^T and dP = dO V^T, each k16 slice of d into a fresh
+      // accumulator (ts, td) and summed in fp32 registers with
+      // round-to-nearest adds; S and dP alternate, so one slice is in
+      // flight while the other is added
+      float sc[BK / 2];  // S, then dS: rows q, columns k
+      float dp[BK / 2];  // dP = dO V^T
+      float ts[BK / 2], td[BK / 2];
+      hopper::zero(sc);
+      hopper::zero(dp);
+      hopper::wgmma_fence();
+      hopper::wgmma_m64n64k16_ss<0>(
+          ts, hopper::desc_k_major(q_base, BQ * 128, 0),
+          hopper::desc_k_major(k_base, BK * 128, 0), 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_m64n64k16_ss<0>(
+          td, hopper::desc_k_major(do_base, BQ * 128, 0),
+          hopper::desc_k_major(v_base, BK * 128, 0), 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const bool more = ks + 1 < D / 16;
+        hopper::wgmma_wait<1>();  // S's slice ks
+        hopper::fence_regs(ts);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] += ts[i];
+        if (more) {
+          hopper::wgmma_fence();
+          hopper::wgmma_m64n64k16_ss<0>(
+              ts, hopper::desc_k_major(q_base, BQ * 128, ks + 1),
+              hopper::desc_k_major(k_base, BK * 128, ks + 1), 0);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();  // dP's slice ks
+        } else {
+          hopper::wgmma_wait<0>();
+        }
+        hopper::fence_regs(td);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) dp[i] += td[i];
+        if (more) {
+          hopper::wgmma_fence();
+          hopper::wgmma_m64n64k16_ss<0>(
+              td, hopper::desc_k_major(do_base, BQ * 128, ks + 1),
+              hopper::desc_k_major(v_base, BK * 128, ks + 1), 0);
+          hopper::wgmma_commit();
+        }
+      }
+
+      // P = exp(S * scale - lse), masked only on the diagonal and ragged
+      // tiles; dS = P * (dP - D) in fp32 (P is not rounded).  The exponent
+      // is rounded as JAX and the plain version round it (the product,
+      // then the difference) and exp is the accurate expf, so P differs
+      // from theirs only through the sums S.
+      const bool masked =
+          (a.causal && k0 + BK - 1 > row0) || k0 + BK > a.sk;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * r + c;
+            float p = expf(__fsub_rn(__fmul_rn(sc[e], a.scale), lse[r]));
+            if (masked) {
+              const int kp = k0 + 8 * j + c_lo + c, qp = r_lo + 8 * r;
+              if (kp >= a.sk || (a.causal && kp > qp)) p = 0.f;
+            }
+            sc[e] = p * (dp[e] - dd[r]);
+          }
+      uint32_t dsf[BK / 16][4];  // bf16(dS): A of dQ += dS K
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::acc_to_a_frag(sc, kk, dsf[kk]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (D == 128)
+          hopper::wgmma_m64n128k16_rs<1>(
+              dq, dsf[kk], hopper::desc_mn_major(k_base, BK * 128, kk), 1);
+        else
+          hopper::wgmma_m64n64k16_rs<1>(
+              dq, dsf[kk], hopper::desc_mn_major(k_base, BK * 128, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+    }
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r_lo + 8 * r;
+    if (qp >= a.sq) continue;
+    __nv_bfloat16* row =
+        a.dq + ((static_cast<long long>(bi) * a.sq + qp) * a.h + hi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + c_lo) = hopper::pack_bf16(
+          a.scale * dq[4 * j + 2 * r], a.scale * dq[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int b, int sq, int sk, int h, int kvh,
+                      int causal, const long long* qs, const long long* ks,
+                      const long long* vs, const long long* os, float scale,
+                      cudaStream_t stream) {
+  Args a;
+  if (!hopper::make_bshd_map(&a.tq, q, b, sq, h, D, qs[0], qs[1], qs[2], BQ)
+      || !hopper::make_bshd_map(&a.tdo, dout, b, sq, h, D, os[0], os[1],
+                                os[2], BQ)
+      || !hopper::make_bshd_map(&a.tk, k, b, sk, kvh, D, ks[0], ks[1], ks[2],
+                                BK)
+      || !hopper::make_bshd_map(&a.tv, v, b, sk, kvh, D, vs[0], vs[1], vs[2],
+                                BK))
+    return cudaErrorInvalidValue;
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.sq = sq; a.sk = sk; a.h = h; a.n_rep = h / kvh; a.causal = causal;
+  a.nqt = (sq + BQ - 1) / BQ;
+  a.scale = scale;
+  const int smem = Smem<D>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * h, a.nqt);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace wg_dq
+
+// ---- K2 and K3 in float32: fp32 FMA on the CUDA cores ---------------------
 
 constexpr int BQ = 64;   // q rows per tile
 constexpr int BK = 64;   // k rows per tile
 constexpr int NT = 256;  // threads per block, a 16 x 16 grid
 constexpr int PS = 64 + 4;  // padded row stride of the 64 x 64 score tiles
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-// x rounded to T and back: the casts of P and dS before their products
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
 
 struct Params {
   const void* q;
@@ -395,14 +659,14 @@ struct Params {
 
 // rows [r0, r0 + 64) of a [s, d] slice (row stride ss) into a padded fp32
 // tile; rows at or past s are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long ss, int r0, int s) {
   constexpr int QS = D + 4;
   for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int row = r0 + r;
-    dst[r * QS + c] = row < s ? to_f<T>(src[row * ss + c]) : 0.f;
+    dst[r * QS + c] = row < s ? src[row * ss + c] : 0.f;
   }
 }
 
@@ -484,8 +748,9 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * 64 * (D + 4) + 2 * 64 * PS + 2 * 64);
 }
 
-// K2: dQ for one (b*h, 64-row q-tile), looping over k-tiles.
-template <typename T, int D>
+// K2, fp32: dQ for one (b*h, 64-row q-tile), looping over k-tiles.  In
+// fp32 the casts of P and dS before their products are no-ops.
+template <int D>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(const Params p) {
   constexpr int QS = D + 4;
   constexpr int NG = D / 64;
@@ -505,13 +770,18 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(const Params p) {
   const int kvi = hi / (p.h / p.kvh);
   const int q0 = blockIdx.x * BQ;
 
-  const T* qg = static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const T* og = static_cast<const T*>(p.dout) + bi * p.o_sb + hi * p.o_sh;
-  const T* kg = static_cast<const T*>(p.k) + bi * p.k_sb + kvi * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + bi * p.v_sb + kvi * p.v_sh;
+  const float* qg =
 
-  load_tile<T, D>(Qs, qg, p.q_ss, q0, p.sq);
-  load_tile<T, D>(dOs, og, p.o_ss, q0, p.sq);
+      static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
+  const float* og =
+      static_cast<const float*>(p.dout) + bi * p.o_sb + hi * p.o_sh;
+  const float* kg =
+      static_cast<const float*>(p.k) + bi * p.k_sb + kvi * p.k_sh;
+  const float* vg =
+      static_cast<const float*>(p.v) + bi * p.v_sb + kvi * p.v_sh;
+
+  load_tile<D>(Qs, qg, p.q_ss, q0, p.sq);
+  load_tile<D>(dOs, og, p.o_ss, q0, p.sq);
   float lse[4], dd[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -535,8 +805,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(const Params p) {
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // last tile's readers are done; Q and dO are visible
-    load_tile<T, D>(Ks, kg, p.k_ss, k0, p.sk);
-    load_tile<T, D>(Vs, vg, p.v_ss, k0, p.sk);
+    load_tile<D>(Ks, kg, p.k_ss, k0, p.sk);
+    load_tile<D>(Vs, vg, p.v_ss, k0, p.sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -550,31 +820,31 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(const Params p) {
         const int kp = k0 + tx + 16 * j;
         const bool ok = qp < p.sq && kp < p.sk && (!p.causal || qp >= kp);
         const float pr = ok ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
-        dSs[(4 * ty + i) * PS + tx + 16 * j] =
-            round_to<T>(pr * (dp[i][j] - dd[i]));
+        dSs[(4 * ty + i) * PS + tx + 16 * j] = pr * (dp[i][j] - dd[i]);
       }
     }
     __syncthreads();
     tile_acc<D>(acc, dSs, Ks, tx, ty);
   }
 
-  T* dqg = static_cast<T*>(p.dq);
+  float* dqg = static_cast<float*>(p.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * ty + i;
     if (qp >= p.sq) continue;
-    T* row = dqg + ((static_cast<long long>(bi) * p.sq + qp) * p.h + hi) * D;
+    float* row =
+        dqg + ((static_cast<long long>(bi) * p.sq + qp) * p.h + hi) * D;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        row[64 * g + 4 * tx + c] = from_f<T>(p.scale * acc[i][g][c]);
+        row[64 * g + 4 * tx + c] = p.scale * acc[i][g][c];
   }
 }
 
-// K3: dK and dV for one (b*kv_h, 64-row k-tile), looping over the n_rep
-// grouped q-heads and the q-tiles from the causal diagonal on.
-template <typename T, int D>
+// K3, fp32: dK and dV for one (b*kv_h, 64-row k-tile), looping over the
+// n_rep grouped q-heads and the q-tiles from the causal diagonal on.
+template <int D>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_kernel(const Params p) {
   constexpr int QS = D + 4;
   constexpr int NG = D / 64;
@@ -597,10 +867,13 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_kernel(const Params p) {
   const int n_rep = p.h / p.kvh;
   const int k0 = blockIdx.x * BK;
 
-  const T* kg = static_cast<const T*>(p.k) + bi * p.k_sb + kvi * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + bi * p.v_sb + kvi * p.v_sh;
-  load_tile<T, D>(Ks, kg, p.k_ss, k0, p.sk);
-  load_tile<T, D>(Vs, vg, p.v_ss, k0, p.sk);
+  const float* kg =
+
+      static_cast<const float*>(p.k) + bi * p.k_sb + kvi * p.k_sh;
+  const float* vg =
+      static_cast<const float*>(p.v) + bi * p.v_sb + kvi * p.v_sh;
+  load_tile<D>(Ks, kg, p.k_ss, k0, p.sk);
+  load_tile<D>(Vs, vg, p.v_ss, k0, p.sk);
 
   float acc_k[4][NG][4], acc_v[4][NG][4];
 #pragma unroll
@@ -620,13 +893,15 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_kernel(const Params p) {
   for (int rep = 0; rep < n_rep; ++rep) {
     const int hi = kvi * n_rep + rep;
     const int bh = bi * p.h + hi;
-    const T* qg = static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-    const T* og = static_cast<const T*>(p.dout) + bi * p.o_sb + hi * p.o_sh;
+    const float* qg =
+        static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
+    const float* og =
+        static_cast<const float*>(p.dout) + bi * p.o_sb + hi * p.o_sh;
     for (int qt = qt0; qt < nq; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // last tile's readers are done; K and V are visible
-      load_tile<T, D>(Qs, qg, p.q_ss, q0, p.sq);
-      load_tile<T, D>(dOs, og, p.o_ss, q0, p.sq);
+      load_tile<D>(Qs, qg, p.q_ss, q0, p.sq);
+      load_tile<D>(dOs, og, p.o_ss, q0, p.sq);
       if (tid < BQ) {
         const int qp = q0 + tid;
         const long long at = static_cast<long long>(bh) * p.sq + qp;
@@ -647,9 +922,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_kernel(const Params p) {
           const int qp = q0 + qr;
           const bool ok = qp < p.sq && kp < p.sk && (!p.causal || qp >= kp);
           const float pr = ok ? expf(st[i][j] * p.scale - lse_s[qr]) : 0.f;
-          Ps[(4 * ty + i) * PS + qr] = round_to<T>(pr);
-          dSs[(4 * ty + i) * PS + qr] =
-              round_to<T>(pr * (dpt[i][j] - dd_s[qr]));
+          Ps[(4 * ty + i) * PS + qr] = pr;
+          dSs[(4 * ty + i) * PS + qr] = pr * (dpt[i][j] - dd_s[qr]);
         }
       }
       __syncthreads();
@@ -658,8 +932,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_kernel(const Params p) {
     }
   }
 
-  T* dkg = static_cast<T*>(p.dk);
-  T* dvg = static_cast<T*>(p.dv);
+  float* dkg = static_cast<float*>(p.dk);
+  float* dvg = static_cast<float*>(p.dv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + 4 * ty + i;
@@ -671,21 +945,21 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = 64 * g + 4 * tx + c;
-        dkg[row + col] = from_f<T>(p.scale * acc_k[i][g][c]);
-        dvg[row + col] = from_f<T>(acc_v[i][g][c]);
+        dkg[row + col] = p.scale * acc_k[i][g][c];
+        dvg[row + col] = acc_v[i][g][c];
       }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dq_fp32(const Params& p, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dq_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + BQ - 1) / BQ, p.b * p.h);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -693,11 +967,11 @@ template <int D>
 cudaError_t launch_dkv_fp32(const Params& p, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<float, D>,
+      flash_bwd_dkv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sk + BK - 1) / BK, p.b * p.kvh);
-  flash_bwd_dkv_kernel<float, D><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -713,6 +987,17 @@ cudaError_t launch_dkv_bf16(const Params& p, const float* lsed,
                            p.scale, stream);
 }
 
+template <int D>
+cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
+  const long long qs[3] = {p.q_sb, p.q_ss, p.q_sh};
+  const long long ks[3] = {p.k_sb, p.k_ss, p.k_sh};
+  const long long vs[3] = {p.v_sb, p.v_ss, p.v_sh};
+  const long long os[3] = {p.o_sb, p.o_ss, p.o_sh};
+  return wg_dq::launch_dq<D>(p.q, p.k, p.v, p.dout, p.lse, p.delta, p.dq,
+                             p.b, p.sq, p.sk, p.h, p.kvh, p.causal, qs, ks,
+                             vs, os, p.scale, stream);
+}
+
 int dispatch(const Params& p, bool dkv, const float* lsed, int dtype, int d,
              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -722,10 +1007,10 @@ int dispatch(const Params& p, bool dkv, const float* lsed, int dtype, int d,
     if (dtype == 0 && d == 128) return launch_dkv_fp32<128>(p, st);
     if (dtype == 0 && d == 64) return launch_dkv_fp32<64>(p, st);
   } else {
-    if (dtype == 1 && d == 128) return launch_dq<__nv_bfloat16, 128>(p, st);
-    if (dtype == 1 && d == 64) return launch_dq<__nv_bfloat16, 64>(p, st);
-    if (dtype == 0 && d == 128) return launch_dq<float, 128>(p, st);
-    if (dtype == 0 && d == 64) return launch_dq<float, 64>(p, st);
+    if (dtype == 1 && d == 128) return launch_dq_bf16<128>(p, st);
+    if (dtype == 1 && d == 64) return launch_dq_bf16<64>(p, st);
+    if (dtype == 0 && d == 128) return launch_dq_fp32<128>(p, st);
+    if (dtype == 0 && d == 64) return launch_dq_fp32<64>(p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,9 +8,9 @@
 Each source is CUDA C++ for sm_90a, built on first use by ``_build.py``
 and called through its plain C interface with ``ctypes``; the note at the
 top of each says what bounds the kernel on an H100 and how the TPU design
-changes.  bfloat16 inputs (the main path) take K1 and K3 on the tensor
-cores (wgmma, with TMA tile loads; ``csrc/hopper.cuh``); float32 inputs,
-and K2 in both types, take the first design, fp32 FMA on the CUDA cores.
+changes.  bfloat16 inputs (the main path) take K1, K2 and K3 on the
+tensor cores (wgmma, with TMA tile loads; ``csrc/hopper.cuh``); float32
+inputs take the first design, fp32 FMA on the CUDA cores.
 ``kernel_input_problem`` says which inputs the kernels take.
 
 ``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the same
@@ -40,7 +40,9 @@ from ray_tpu_torch.ops.attention import _NEG_INF, _repeat_kv
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_MAX_GRID_Y = 65535  # b * h: the fp32 kernels' and K2's grid y dimension
+# b * h: the fp32 kernels' grid y dimension (the bf16 kernels put b * h,
+# or b * kv_h, on grid x); one limit for both types
+_MAX_GRID_Y = 65535
 _TMA_ALIGN = 16      # bytes: TMA's alignment of base addresses and strides
 _K3_ROWS = 64        # q rows per tile of K3's bf16 kernel
 
@@ -113,7 +115,7 @@ def kernel_input_problem(*tensors: torch.Tensor) -> Optional[str]:
     """Why the CUDA flash kernels do not take these [b, s, h, d] tensors
     (q first, all of one dtype), or None if they do: float32 or bfloat16,
     head_dim 64 or 128, unit stride on the head dimension, b * h within
-    the grid's y limit, and for bfloat16 (the TMA loads of K1 and K3) a
+    the grid's y limit, and for bfloat16 (the TMA loads of K1-K3) a
     16-byte aligned base and b/s/h strides.  ``_check_kernel_inputs``
     raises with this reason; ``ops.attention.flash_takes`` sends what it
     names to the reference attention."""

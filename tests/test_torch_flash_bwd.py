@@ -62,29 +62,56 @@ def test_flash_op_grads_match_jax_vjp(causal, s, h, kvh):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("causal,s", [(True, 96), (False, 96), (True, 80)])
-def test_bwd_plain_matches_pallas_bwd_interpret(causal, s):
+# bf16: both sides round dS (and P for dV) to bf16 at the same points and
+# write bf16 outputs, so an element differs only where fp32 sums taken in
+# another order flip its final rounding: one bf16 ulp (rtol 2^-7; atol for
+# elements near zero), a few elements, so the whole output's relative L2
+# error stays far below 1e-5.  A plain version that rounds P before dS K,
+# or does not round dS, fails this case.
+BF16_ATOL, BF16_RTOL, BF16_REL_L2 = 1e-5, 2 ** -7, 1e-5
+
+
+@pytest.mark.parametrize("causal,s,dtype", [
+    pytest.param(True, 96, "float32", id="True-96"),
+    pytest.param(False, 96, "float32", id="False-96"),
+    pytest.param(True, 80, "float32", id="True-80"),
+    pytest.param(True, 80, "bfloat16", id="True-80-bfloat16"),
+])
+def test_bwd_plain_matches_pallas_bwd_interpret(causal, s, dtype):
     """``flash_attention_bwd_plain`` against ``_flash_bwd_impl`` (the
     launches of ``_dq_kernel`` and ``_dkv_kernel``) given the same
-    residuals, GQA h=4 over kv_h=2."""
-    b, h, kvh = 2, 4, 2
-    q, k, v, g = _inputs(1, b, s, h, kvh)
-    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    residuals, GQA h=4 over kv_h=2; in bf16 (b=1, d=64) this holds the
+    points where the plain version, and so the CUDA kernels held to it,
+    round P and dS to the JAX package's."""
+    b, d = (1, 64) if dtype == "bfloat16" else (2, 16)
+    h, kvh = 4, 2
+    q, k, v, g = _inputs(1, b, s, h, kvh, d)
+    jq, jk, jv, jg = (jnp.asarray(x).astype(dtype) for x in (q, k, v, g))
     jout, jlse = jflash._flash_fwd_impl(jq, jk, jv, causal=causal,
                                         block_q=32, block_k=32,
                                         interpret=True)
-    want = jflash._flash_bwd_impl((jq, jk, jv, jout, jlse), jnp.asarray(g),
+    want = jflash._flash_bwd_impl((jq, jk, jv, jout, jlse), jg,
                                   causal=causal, block_q=32, block_k=32,
                                   interpret=True)
     # JAX keeps lse padded and head-folded: [b*h, 1, s_pad] -> [b, h, s]
     lse = np.asarray(jlse).reshape(b, h, -1)[:, :, :s]
+
+    def same(x):  # a JAX array as a torch tensor of its dtype, bit-exact
+        return _t(np.asarray(x.astype(jnp.float32))).to(getattr(torch, dtype))
+
     got = tflash.flash_attention_bwd_plain(
-        _t(q), _t(k), _t(v), _t(np.asarray(jout)), _t(lse), _t(g),
+        same(jq), same(jk), same(jv), same(jout), _t(lse), same(jg),
         causal=causal)
     for name, a, w in zip("qkv", got, want):
-        assert a.shape == w.shape
-        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL,
+        assert a.shape == w.shape and a.dtype == getattr(torch, dtype)
+        a, w = a.float().numpy(), np.asarray(w.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(a, w, atol=ATOL, err_msg=f"d{name}")
+            continue
+        np.testing.assert_allclose(a, w, atol=BF16_ATOL, rtol=BF16_RTOL,
                                    err_msg=f"d{name}")
+        rel_l2 = np.linalg.norm(a - w) / np.linalg.norm(w)
+        assert rel_l2 <= BF16_REL_L2, (f"d{name}", rel_l2)
 
 
 def test_bwd_wrapper_runs_plain_on_cpu():

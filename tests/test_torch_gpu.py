@@ -124,6 +124,14 @@ KERNEL_CASES = {
     "bf16_head_major": (2, 300, 8, 2, 128, torch.bfloat16, True,
                         "head_major"),
     "fp32_fma": (1, 300, 4, 2, 128, torch.float32, True, "contiguous"),
+    # the edges of K2's tiling (128 q rows per block, 64 per warpgroup):
+    # fewer rows than one warpgroup, one row past a block, the main path
+    "bf16_causal_s40": (1, 40, 4, 4, 128, torch.bfloat16, True,
+                        "contiguous"),
+    "bf16_causal_s129": (1, 129, 4, 2, 128, torch.bfloat16, True,
+                         "contiguous"),
+    "bf16_main_path": (1, 2048, 32, 32, 128, torch.bfloat16, True,
+                       "contiguous"),
 }
 
 
@@ -185,6 +193,40 @@ def test_flash_kernels_match_plain_across_layouts_on_card(case):
                 c + 2 for c in counts)  # the direct calls and the step
     for grad, w, atol in zip((qg.grad, kg.grad, vg.grad), want, atols):
         assert_bwd_close(grad, w, atol, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,design,other", [
+    (torch.bfloat16, "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel"),
+    (torch.float32, "flash_bwd_dq_kernel", "flash_bwd_dq_wgmma_kernel"),
+])
+def test_bwd_dq_kernel_design_by_dtype_on_card(dtype, design, other):
+    """By torch.profiler's kernel names, a bf16 backward runs K2 on the
+    tensor cores (``flash_bwd_dq_wgmma_kernel``) and an fp32 one on the
+    FMA kernel (``flash_bwd_dq_kernel``), once each and never the other:
+    no launch falls back to the other design."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K2 has no CPU or interpret mode")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = (randn(1, 256, 4, 128), randn(1, 256, 2, 128),
+                   randn(1, 256, 2, 128), randn(1, 256, 4, 128))
+    out, lse = flash.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        flash.flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len([n for n in names if design in n]) == 1, names
+    assert not [n for n in names if other in n], names
 
 
 @pytest.mark.gpu
