@@ -23,8 +23,18 @@ Phases, each printing one JSON line:
    version's (``dq_flipped_vs_exact``).  Then K4 (the remote copy) in
    rings of four ranks on one card: at the main-path payload, one
    Llama-2-7B pipeline-stage activation ([1, 2048, 4096] bf16, 16 MiB),
-   shifts 1 and 3, and at odd byte counts, each bit-exact against ``copy_`` with one launch per hop; with two cards and
-   peer access, also the ring over NVLink, else a line saying why not.
+   shifts 1 and 3, and at odd byte counts, each bit-exact against
+   ``copy_`` with one launch per hop; the main-path row names the kernel
+   a hop launched (by the profiler), how the hop completes ("stream
+   order" on one card) and its ring of shared memory.  Then one hop at
+   each edge of the design (0 to 17 bytes, one stage, two stages, every
+   SM busy, 16 MiB + 3), each bit-exact with
+   one launch of the named kernel; the ``cross_stream`` line, the peer
+   completion forced across two streams of one card (64 hops, each
+   consumer's clone bit-exact) and timed against a bare copy; with two
+   cards and peer access, the ring over NVLink, 64 flagged hops onto
+   cuda:1 each consumed there bit-exact, and the hop timed, else a line
+   saying why not.
 3. ``small_reference``: small fp32 models on the card against a plain
    reference: the forward through K1 against the reference attention,
    greedy ``LLMEngine`` output against full-recompute argmax, and three
@@ -39,7 +49,10 @@ Phases, each printing one JSON line:
    degrade, and every segment is destroyed.
 5. ``ring``: ``device_ring_copy`` (the in-process device hop) moves the
    four ranks' activations around the ring, shifts 1 and 3; K4 must
-   launch once per hop and the result must equal the shifted input.
+   launch once per hop and the result must equal the shifted input.  The
+   host's time per ring of ``device_ring_copy`` is split into its K4
+   launches, its completion check and the rest, and the wait for the
+   card after it.
 6. ``forward``: ``llama_apply`` at full Llama-2-7B width and depth (bf16
    weights from a seed, b=1, s=2048); K1 must launch once per layer.
 7. ``serve``: ``LLMEngine`` on the same model answers five ~200-token
@@ -89,7 +102,14 @@ PEAK_NVLINK_BYTES = 450e9
 ACTIVATION = (1, SEQ, 4096)
 RING_RANKS = 4
 RING_SHIFTS = (1, 3)
+RING_SPLIT_WARMUP, RING_SPLIT_RINGS = 2, 8
 CHANNEL_FRAMES = 10
+# K4: its copy kernel's name; the hops of the cross-stream completion;
+# the sleep that lets the host queue a whole hop before the card reaches
+# it (~0.1 ms)
+K4_KERNEL = "remote_copy_bulk_kernel"
+K4_CROSS_HOPS = 64
+K4_SLEEP_CYCLES = 200_000
 
 # (name, b, s, h, kv_h, d, dtype, causal, atol/rtol on O, atol on lse)
 # bf16: O is rounded to bf16 and P is cast to bf16 before PV, so 2e-2;
@@ -487,56 +507,209 @@ def device_ms(fn, iters):
     return sum(device_times(fn, iters).values()) or "not measured"
 
 
+def rotate(fn, srcs, dsts):
+    """A call that runs ``fn`` on the next (src, dst) pair each time, so
+    each finds its bytes cold in L2."""
+    state = {"k": 0}
+
+    def hop():
+        k = state["k"] = (state["k"] + 1) % len(srcs)
+        fn(srcs[k], dsts[k])
+    return hop
+
+
+def k4_copy_ms(times):
+    """The copy kernel's device time among ``device_times``' kernels."""
+    ms = [t for name, t in times.items() if K4_KERNEL in name]
+    return ms[0] if ms else "not measured"
+
+
 def k4_hop_ms(srcs, dsts, iters=20):
-    """Per hop that rotates through the (src, dst) pairs, so each finds its
-    bytes cold in L2: the device time of K4 (its copy and its wait kernel)
-    and of ``copy_`` in turns (plain, K4, K4, library), by the profiler;
-    the copy kernel alone; and the wall time of back-to-back hops by CUDA
-    events, which includes the host's launch gaps.  Across two cards the
-    sum counts the wait kernel, which spins on the destination while the
-    copy runs on the source: there the copy kernel alone is the hop."""
+    """Per hop that rotates through the (src, dst) pairs: the device time
+    of K4 (its copy, and on a peer its wait kernel) and of ``copy_`` in
+    turns (plain, K4, K4, library), by the profiler; the copy kernel
+    alone, and the names of the kernels a hop launched; and the wall time
+    of back-to-back hops by CUDA events, which includes the host's launch
+    gaps.  Across two cards the sum counts the wait kernel, which spins
+    on the destination while the copy runs on the source: there the copy
+    kernel alone is the hop."""
     from ray_tpu_torch.ops.cuda.remote_copy import (check_remote_copies,
                                                     remote_copy,
                                                     remote_copy_plain)
 
-    def rotate(fn):
-        state = {"k": 0}
-
-        def hop():
-            k = state["k"] = (state["k"] + 1) % len(srcs)
-            fn(srcs[k], dsts[k])
-        return hop
-
-    plain_ms = device_ms(rotate(remote_copy_plain), iters)
-    ms = device_ms(rotate(remote_copy), iters)
-    ms_again = device_ms(rotate(remote_copy), iters)
-    library_ms = device_ms(rotate(remote_copy_plain), iters)
-    times = device_times(rotate(remote_copy), iters)
-    hop_wall_ms = cuda_ms(rotate(remote_copy), iters)
+    plain_ms = device_ms(rotate(remote_copy_plain, srcs, dsts), iters)
+    ms = device_ms(rotate(remote_copy, srcs, dsts), iters)
+    ms_again = device_ms(rotate(remote_copy, srcs, dsts), iters)
+    library_ms = device_ms(rotate(remote_copy_plain, srcs, dsts), iters)
+    times = device_times(rotate(remote_copy, srcs, dsts), iters)
+    hop_wall_ms = cuda_ms(rotate(remote_copy, srcs, dsts), iters)
     check_remote_copies()
-    kernel_ms = [t for name, t in times.items() if "remote_copy_kernel" in name]
     wait_ms = [t for name, t in times.items() if "remote_wait_kernel" in name]
     return {"ms": ms, "ms_again": ms_again, "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "copy_kernel_ms": kernel_ms[0] if kernel_ms else "not measured",
-            "wait_kernel_ms": wait_ms[0] if wait_ms else "not measured",
+            "library_ms": library_ms, "design": sorted(times),
+            "copy_kernel_ms": k4_copy_ms(times),
+            "wait_kernel_ms": wait_ms[0] if wait_ms else "none launched",
             "hop_wall_ms": hop_wall_ms}
+
+
+def k4_edge_counts(stage, sms):
+    """Byte counts around every edge of K4's design: no whole vector, one
+    vector and a byte, one stage (one chunk; past it the grid splits),
+    two stages, the grid filling every SM, and the main path with a tail
+    (its chunks not a multiple of the grid)."""
+    return {"0": 0, "1": 1, "15": 15, "16": 16, "17": 17,
+            "stage-16": stage - 16, "stage": stage, "stage+16": stage + 16,
+            "2stage-16": 2 * stage - 16, "2stage": 2 * stage,
+            "2stage+16": 2 * stage + 16,
+            "sms*stage-16": sms * stage - 16,
+            "sms*stage+16": sms * stage + 16,
+            "16MiB+3": math.prod(ACTIVATION) * 2 + 3}
+
+
+def k4_edge_cases():
+    """One K4 hop on cuda:0 at each of ``k4_edge_counts``, bit-exact
+    against its source with the 64 bytes either side of ``dst``
+    untouched, one launch each, and the profiler naming the copy kernel
+    (and no wait kernel)."""
+    import torch
+
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for name, nbytes in k4_edge_counts(rc.STAGE_BYTES, sms).items():
+        src = torch.randint(0, 256, (nbytes,), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+        buf = torch.full((nbytes + 128,), 0xA5, dtype=torch.uint8,
+                         device="cuda")
+        dst = buf[64:64 + nbytes]
+        before = rc.remote_copy.launches
+        names = sorted(device_times(lambda: rc.remote_copy(src, dst)))
+        launches = rc.remote_copy.launches - before
+        exact = (_same_bits(dst, src) and bool((buf[:64] == 0xA5).all())
+                 and bool((buf[64 + nbytes:] == 0xA5).all()))
+        if (not exact or launches != 1 or len(names) != 1
+                or K4_KERNEL not in names[0]):
+            raise AssertionError(f"K4 at {nbytes} bytes ({name}): bit-exact "
+                                 f"{exact}, {launches} launches, kernels "
+                                 f"{names}")
+        rows.append({"case": name, "nbytes": nbytes,
+                     "blocks": rc.grid_blocks(nbytes, sms)})
+    return rows
+
+
+def k4_cross_stream(hops=K4_CROSS_HOPS, iters=20):
+    """The peer completion forced on one card, through the private
+    launcher: each 16 MiB hop's copy, with its flag, on stream A, and its
+    wait and a consumer that clones ``dst`` on stream B, over rotating
+    buffers; every clone must equal its source bit for bit (a flag seen
+    before the bytes would show here).  Then the time from a hop's start
+    on A to its end on B (after the wait) against a bare copy's, both by
+    CUDA events behind a sleep kernel, so the host has queued the whole
+    hop before the card reaches it; and the kernels' device times."""
+    import torch
+
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
+
+    lib = rc._lib()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    srcs = activation_shards(n=5, seed=16)
+    dsts = [torch.zeros_like(x) for x in srcs[:4]]
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    comp = rc._Completion(dev, dev, a.cuda_stream)  # not registered
+    freed, seen = [None] * len(dsts), []
+    torch.cuda.synchronize()
+    for h in range(hops):
+        k = h % len(dsts)
+        with torch.cuda.stream(a):
+            if freed[k] is not None:
+                a.wait_event(freed[k])
+            rc._flagged_hop(lib, srcs[h % 5], dsts[k], comp, b)
+        with torch.cuda.stream(b):
+            seen.append(dsts[k].clone())
+            freed[k] = b.record_event()
+    torch.cuda.synchronize()
+    wrong = [h for h, got in enumerate(seen)
+             if not _same_bits(got, srcs[h % 5])]
+    if wrong or int(comp.words[2]):
+        raise AssertionError(f"K4 cross-stream completion: hops {wrong} "
+                             f"differ from their source, status "
+                             f"{int(comp.words[2])}")
+    del seen
+
+    def latency_ms(flagged):
+        pairs = []
+        for h in range(iters):
+            k = h % len(dsts)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(a):
+                a.wait_stream(b)
+                torch.cuda._sleep(K4_SLEEP_CYCLES)
+                start.record(a)
+                if flagged:
+                    rc._flagged_hop(lib, srcs[k], dsts[k], comp, b)
+                else:
+                    rc._launch_copy(lib, srcs[k], dsts[k])
+            end.record(b if flagged else a)
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+    bare_ms = latency_ms(False)
+    hop_ms = latency_ms(True)
+    hop_again_ms = latency_ms(True)
+    bare_again_ms = latency_ms(False)
+
+    def flagged(src, dst):
+        with torch.cuda.stream(a):
+            a.wait_stream(b)
+            rc._flagged_hop(lib, src, dst, comp, b)
+
+    def bare(src, dst):
+        with torch.cuda.stream(a):
+            rc._launch_copy(lib, src, dst)
+
+    times = device_times(rotate(flagged, srcs[:4], dsts), iters)
+    bare_times = device_times(rotate(bare, srcs[:4], dsts), iters)
+    torch.cuda.synchronize()
+    if int(comp.words[2]):
+        raise AssertionError("K4 cross-stream completion: a wait timed out")
+    hop = (hop_ms + hop_again_ms) / 2
+    bare_mean = (bare_ms + bare_again_ms) / 2
+    return {"hops": hops, "bit_exact": True,
+            "hop_ms": [hop_ms, hop_again_ms],
+            "bare_copy_ms": [bare_ms, bare_again_ms],
+            "completion_us": 1e3 * (hop - bare_mean),
+            "flagged_copy_kernel_ms": k4_copy_ms(times),
+            "bare_copy_kernel_ms": k4_copy_ms(bare_times),
+            "timed_by": "CUDA events, start on A to end on B after the wait "
+                        "(bare: end on A), behind a sleep kernel"}
 
 
 def phase_kernels_k4():
     """K4 against ``copy_`` on the card: rings of RING_RANKS ranks on
-    cuda:0 at the main-path payload (shifts 1 and 3) and at odd byte
-    counts, and the ring over two cards when there are two with peer
-    access.  Returns the main-path row."""
+    cuda:0 at the main-path payload (shifts 1 and 3), odd byte counts, the edges of the design, the peer completion forced
+    across two streams of one card, and the ring over two cards when
+    there are two with peer access.  Returns the main-path row."""
     import torch
+
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
 
     nbytes = math.prod(ACTIVATION) * 2
     shards = activation_shards()
+    dev = shards[0].device
     row = {"phase": "kernel", "kernel": "K4 remote_copy", "case": "main_path",
            "ranks": RING_RANKS, "device": "cuda:0 (every rank)",
            "shape": list(ACTIVATION), "dtype": "bfloat16", "nbytes": nbytes,
            "shifts": list(RING_SHIFTS), "launches_per_ring": [],
-           "max_abs_err": 0.0, "compared_with": "copy_, bit-exact"}
+           "max_abs_err": 0.0, "compared_with": "copy_, bit-exact",
+           "completion": ("flag + wait" if rc.needs_completion(dev, dev)
+                          else "stream order"),
+           "stages": rc.STAGES, "stage_bytes": rc.STAGE_BYTES,
+           "blocks": rc.grid_blocks(nbytes, torch.cuda.get_device_properties(
+               0).multi_processor_count)}
     for shift in RING_SHIFTS:
         launches, err = k4_ring_case(shards, shift)
         row["launches_per_ring"].append(launches)
@@ -545,6 +718,13 @@ def phase_kernels_k4():
     row.update(k4_hop_ms(shards, dsts))
     row["bound_ms"] = 1e3 * 2 * nbytes / PEAK_BYTES
     row["bound_by"] = "bytes"
+    row["bound_share"] = (row["bound_ms"] / row["ms"]
+                          if isinstance(row["ms"], float) else "not measured")
+    if row["launches_per_ring"] != [RING_RANKS] * len(RING_SHIFTS) or \
+            not any(K4_KERNEL in n for n in row["design"]):
+        raise AssertionError(f"K4 main path: launches "
+                             f"{row['launches_per_ring']}, kernels "
+                             f"{row['design']}")
     emit(row)
     del dsts
     for dtype, shape in (("float32", (3, 7)), ("int8", (37,))):
@@ -555,16 +735,51 @@ def phase_kernels_k4():
               "shape": list(shape), "dtype": dtype,
               "nbytes": small[0].numel() * small[0].element_size(),
               "launches_per_ring": [launches], "max_abs_err": err})
+    del shards
+    emit({"phase": "kernel", "kernel": "K4 remote_copy", "case": "edges",
+          "bit_exact": True, "launches_each": 1, "cases": k4_edge_cases()})
+    emit({"phase": "kernel", "kernel": "K4 remote_copy",
+          "case": "cross_stream", **k4_cross_stream()})
     emit({"phase": "kernel", "kernel": "K4 remote_copy", "case": "peer_ring",
           **k4_peer_ring()})
-    del shards
     torch.cuda.empty_cache()
     return row
 
 
+def k4_peer_stress(hops=K4_CROSS_HOPS):
+    """``hops`` 16 MiB hops cuda:0 -> cuda:1 through ``remote_copy`` over
+    rotating buffers, each consumed by a clone on cuda:1's stream queued
+    after the hop's wait; every clone must equal its source.  Returns the
+    hops."""
+    import torch
+
+    from ray_tpu_torch.ops.cuda.remote_copy import (check_remote_copies,
+                                                    remote_copy)
+
+    srcs = activation_shards(n=5, seed=18)
+    dsts = [torch.empty_like(x, device="cuda:1") for x in srcs[:4]]
+    seen = []
+    torch.cuda.synchronize("cuda:0")
+    torch.cuda.synchronize("cuda:1")
+    for h in range(hops):
+        remote_copy(srcs[h % 5], dsts[h % 4])
+        with torch.cuda.device(1):
+            seen.append(dsts[h % 4].clone())
+    torch.cuda.synchronize("cuda:1")
+    check_remote_copies()
+    wrong = [h for h, got in enumerate(seen)
+             if not _same_bits(got.to("cuda:0"), srcs[h % 5])]
+    if wrong:
+        raise AssertionError(f"K4 cuda:0 -> cuda:1: hops {wrong} differ "
+                             "from their source")
+    return hops
+
+
 def k4_peer_ring():
     """The ring over the visible cards (rank i on cuda:i, at most
-    RING_RANKS), each hop a store over NVLink, or why it was not run."""
+    RING_RANKS), each hop a store over NVLink, a stress of flagged hops
+    onto cuda:1, and the hop cuda:0 -> cuda:1 timed; or why it was not
+    run."""
     import torch
 
     count = min(torch.cuda.device_count(), RING_RANKS)
@@ -584,11 +799,13 @@ def k4_peer_ring():
         n, e = k4_ring_case(shards, shift)
         launches.append(n)
         err = max(err, e)
+    stressed = k4_peer_stress()
     dsts = [torch.empty_like(shards[0], device="cuda:1")]
     times = k4_hop_ms(shards[:1], dsts)
     return {"run": True, "ranks": count, "shifts": list(RING_SHIFTS),
             "launches_per_ring": launches, "max_abs_err": err,
-            "nbytes": nbytes, "timed_hop": "cuda:0 -> cuda:1", **times,
+            "nbytes": nbytes, "timed_hop": "cuda:0 -> cuda:1",
+            "stress_hops_bit_exact": stressed, **times,
             "bound_ms": 1e3 * nbytes / PEAK_NVLINK_BYTES,
             "bound_by": "bytes (NVLink, 450 GB/s each way)"}
 
@@ -789,18 +1006,27 @@ def frame_copies_ms(x, out):
 def phase_ring(device="cuda"):
     """The in-process device hop at the main-path payload: RING_RANKS
     ranks' activations around the ring through ``device_ring_copy``,
-    shifts 1 and 3, the K4 count set to 0 just before and read just
-    after; each result must equal the shifted input."""
+    shifts 1 and 3, each ring ended by a synchronize, the K4 count set to
+    0 just before and read just after; each result must equal the shifted
+    input.  Then the host's split per ring, from RING_SPLIT_RINGS more
+    calls of ``device_ring_copy`` (after RING_SPLIT_WARMUP, so the
+    allocator has the buffers): the time in its K4 launches and in its
+    ``check_remote_copies``, each timed around the call that
+    ``device_ring_copy`` makes, the rest of the call (allocations, the
+    loop), and the wait for the card after it."""
     import torch
 
-    from ray_tpu_torch.experimental.channel.transport import device_ring_copy
+    from ray_tpu_torch.experimental.channel import transport
     from ray_tpu_torch.ops.cuda.remote_copy import remote_copy
 
     shards = activation_shards(device=device, seed=15)
     torch.cuda.synchronize()
     remote_copy.launches = 0
     t0 = time.perf_counter()
-    outs = [device_ring_copy(shards, shift=s) for s in RING_SHIFTS]
+    outs = []
+    for s in RING_SHIFTS:
+        outs.append(transport.device_ring_copy(shards, shift=s))
+        torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = remote_copy.launches
     for shift, out in zip(RING_SHIFTS, outs):
@@ -812,10 +1038,41 @@ def phase_ring(device="cuda"):
     if launches != RING_RANKS * len(RING_SHIFTS):
         raise AssertionError(f"K4 launched {launches} times in "
                              f"{len(RING_SHIFTS)} rings of {RING_RANKS}")
+    split = {"launch": 0.0, "check": 0.0, "call": 0.0, "sync": 0.0}
+
+    def timed(key, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            fn(*args)
+            split[key] += time.perf_counter() - t0
+        return call
+
+    real = transport.remote_copy, transport.check_remote_copies
+    transport.remote_copy = timed("launch", real[0])
+    transport.check_remote_copies = timed("check", real[1])
+    try:
+        for r in range(RING_SPLIT_WARMUP + RING_SPLIT_RINGS):
+            if r == RING_SPLIT_WARMUP:
+                split.update(dict.fromkeys(split, 0.0))
+            t0 = time.perf_counter()
+            transport.device_ring_copy(
+                shards, shift=RING_SHIFTS[r % len(RING_SHIFTS)])
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            split["call"] += t1 - t0
+            split["sync"] += time.perf_counter() - t1
+    finally:
+        transport.remote_copy, transport.check_remote_copies = real
+    ms = {k: 1e3 * v / RING_SPLIT_RINGS for k, v in split.items()}
     return {"ranks": RING_RANKS, "shifts": list(RING_SHIFTS),
             "shape": list(ACTIVATION), "dtype": "bfloat16",
             "k4_launches": launches, "wall_ms_per_ring":
-            1e3 * wall_s / len(RING_SHIFTS)}
+            1e3 * wall_s / len(RING_SHIFTS),
+            "host_split_ms_per_ring": {
+                "launch": ms["launch"], "check": ms["check"],
+                "rest": ms["call"] - ms["launch"] - ms["check"],
+                "sync": ms["sync"]},
+            "host_split_rings": RING_SPLIT_RINGS}
 
 
 def phase_small_reference(device="cuda"):
@@ -1270,13 +1527,10 @@ def main() -> int:
         {"name": "K4 remote_copy", "route": "cuda",
          "source": source + "remote_copy.cu",
          "replaces": "ray_tpu/experimental/channel/transport.py:285",
-         "launches": ring["k4_launches"], "max_abs_err": k4["max_abs_err"],
+         "design": k4["design"], "launches": ring["k4_launches"], "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-         "library_ms": k4["library_ms"],
-         "bound_share": (k4["bound_ms"] / k4["ms"]
-                         if isinstance(k4["ms"], float)
-                         else "not measured")}]})
+         "library_ms": k4["library_ms"], "bound_share": k4["bound_share"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -220,8 +220,10 @@ def device_ring_copy(shards: Sequence[torch.Tensor],
     shifted list, ``out[(i + shift) % n]`` equal to ``shards[i]`` and on
     rank ``(i + shift) % n``'s device.  On CUDA each hop is one launch of
     K4, which stores into the neighbour's memory on the same card or over
-    NVLink; the call then waits for the hops to land and raises if one did
-    not.  On the CPU each hop is K4's plain version."""
+    NVLink.  A hop within one card is ordered by the card's stream alone;
+    a hop onto another card also queues a wait on that card's stream, and
+    the call then checks the waits and raises if one ran out.  On the CPU
+    each hop is K4's plain version."""
     n = len(shards)
     out: List[Optional[torch.Tensor]] = [None] * n
     for i, x in enumerate(shards):

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// TMA tile loads with mbarrier completion, wgmma shared-memory descriptors
-// for 128-byte-swizzled bf16 tiles, the wgmma issue/commit/wait
-// instructions, and the register-fragment helpers that turn an fp32
-// accumulator into the register A operand of the next wgmma.
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// and the remote copy: TMA tile loads with mbarrier completion, bulk
+// stores in bulk groups with their waits and the async-proxy fence, wgmma
+// shared-memory descriptors for 128-byte-swizzled bf16 tiles, the wgmma
+// issue/commit/wait instructions, and the register-fragment helpers that
+// turn an fp32 accumulator into the register A operand of the next wgmma.
 //
 // Tile layout.  Every bf16 tile in shared memory is a stack of [rows][64]
 // blocks, one per 64 columns of the head dimension, each row 128 bytes and
@@ -112,6 +113,63 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// an L2 policy under which the lines an access brings in are the first to
+// be evicted: for bytes read once
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// bulk_load under an L2 cache policy
+__device__ __forceinline__ void bulk_load_policy(void* dst, const void* src,
+                                                 uint32_t bytes,
+                                                 uint64_t* bar,
+                                                 uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)),
+         "l"(policy)
+      : "memory");
+}
+
+// plain bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from shared memory to global memory (this card's or a peer's), in the
+// thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups still read their
+// shared-memory source (the source may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// waits until at most N of this thread's bulk groups are incomplete: the
+// others' writes to global memory are performed
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// orders this thread's completed async-proxy (TMA) accesses of global
+// memory before its later generic ones, such as a release that publishes
+// them to readers that use plain loads
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -6,6 +6,8 @@ shared ``tests/conftest.py`` (which sets up JAX on the CPU):
 ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest``.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -288,37 +290,44 @@ def test_remote_copy_matches_copy_on_card(shape, dtype):
 @pytest.mark.gpu
 def test_remote_copy_wait_timeout_raises():
     """A wait whose flag never reaches its epoch gives up after its bound
-    and the wrapper raises; the next hop on the pair works again."""
+    and the wrapper raises; the next flagged hop of that completion works
+    again.  One card has no peer, so the completion is made through the
+    private launcher, as a hop onto a peer makes it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
     from ray_tpu_torch.ops.cuda import remote_copy as rc
 
     x = torch.arange(64, dtype=torch.float32, device="cuda")
     y = torch.empty_like(x)
-    rc.remote_copy(x, y)
-    rc.check_remote_copies()
     lib = rc._lib()
-    comp = rc._completion(lib, x.device, y.device,
-                          torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device)
+    comp = rc._completion(lib, x.device, y.device, stream.cuda_stream)
+    rc._flagged_hop(lib, x, y, comp, stream)
+    rc.check_remote_copies()
     rc._launch_wait(lib, comp, comp.epoch + 1000, timeout_s=1e-3)
     with pytest.raises(RuntimeError, match="timed out"):
         rc.check_remote_copies()
-    rc.remote_copy(x * 2, y)
+    rc._flagged_hop(lib, x * 2, y, comp, stream)
     rc.check_remote_copies()
     assert torch.equal(y, x * 2)
 
 
 @pytest.mark.gpu
 def test_remote_copy_two_streams_on_one_pair():
-    """Hops between one pair of devices from two streams at once: each
-    stream has its own completion, and work queued after a hop's wait on
-    its stream sees every byte of that hop, never a half-copied buffer."""
+    """Flagged hops between one pair of devices from two streams at once
+    (one card standing in for the pair, through the private launcher):
+    each stream has its own completion, and work queued after a hop's
+    wait on its stream sees every byte of that hop, never a half-copied
+    buffer."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
     from ray_tpu_torch.ops.cuda import remote_copy as rc
 
     gen = torch.Generator(device="cuda").manual_seed(3)
+    lib = rc._lib()
+    dev = torch.device("cuda", torch.cuda.current_device())
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    comps = [rc._completion(lib, dev, dev, s.cuda_stream) for s in streams]
     hops = 8
     srcs = [[torch.randint(-100, 100, (1 << 21,), generator=gen,
                            device="cuda", dtype=torch.int16)
@@ -329,16 +338,133 @@ def test_remote_copy_two_streams_on_one_pair():
         for k, stream in enumerate(streams):
             with torch.cuda.stream(stream):
                 dst = torch.zeros_like(srcs[k][h])
-                rc.remote_copy(srcs[k][h], dst)
+                rc._flagged_hop(lib, srcs[k][h], dst, comps[k], stream)
                 seen[k].append(dst.clone())  # queued after the hop's wait
     torch.cuda.synchronize()
     rc.check_remote_copies()
     for k in range(len(streams)):
         for h in range(hops):
             assert torch.equal(seen[k][h], srcs[k][h]), (k, h)
-    keys = {(0, 0, s.cuda_stream) for s in streams}
+    keys = {(dev.index, dev.index, s.cuda_stream) for s in streams}
     assert keys <= set(rc._REG.pairs)
     assert all(rc._REG.pairs[key].epoch >= hops for key in keys)
+
+
+def _edge_counts(stage, sms):
+    """``chip_smoke.py``'s ``k4_edge_counts``: byte counts around every
+    edge of K4's design, one table for the script and the tests."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.k4_edge_counts(stage, sms)
+
+
+def _cuda_kernels(fn):
+    """The names of the device kernels one call of ``fn`` ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", [
+    "0", "1", "15", "16", "17", "stage-16", "stage", "stage+16",
+    "2stage-16", "2stage", "2stage+16", "sms*stage-16", "sms*stage+16",
+    "16MiB+3"])
+def test_remote_copy_edges_on_card(edge):
+    """K4 bit-exact against ``copy_`` at a byte count on an edge of its
+    design (no whole vector; one stage, past which the grid splits; two
+    stages; every SM busy; the main path with a tail), the 64 bytes
+    either side of ``dst`` untouched, in exactly one launch, which the
+    profiler names ``remote_copy_bulk_kernel``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nbytes = _edge_counts(rc.STAGE_BYTES, sms)[edge]
+    gen = torch.Generator(device="cuda").manual_seed(nbytes)
+    src = torch.randint(0, 256, (nbytes,), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    buf = torch.full((nbytes + 128,), 0xA5, dtype=torch.uint8,
+                     device="cuda")
+    dst = buf[64:64 + nbytes]
+    want = torch.full_like(dst, 0xA5)
+    want.copy_(src)
+    before = rc.remote_copy.launches
+    names = _cuda_kernels(lambda: rc.remote_copy(src, dst))
+    assert rc.remote_copy.launches == before + 1
+    assert len(names) == 1 and "remote_copy_bulk_kernel" in names[0], names
+    assert torch.equal(dst, want)
+    assert bool((buf[:64] == 0xA5).all()) and bool((buf[64 + nbytes:]
+                                                     == 0xA5).all())
+
+
+@pytest.mark.gpu
+def test_remote_copy_peer_completion_across_streams():
+    """The peer completion forced on one card through the private
+    launcher: each 16 MiB hop's copy, with its flag, on stream A; its wait
+    and a consumer that clones ``dst`` on stream B; 64 hops over rotating
+    buffers, each clone bit-exact.  A flag that became visible before the
+    bulk stores' bytes (a missing or misplaced proxy fence) shows here as
+    a clone of the buffer's previous contents."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
+
+    lib = rc._lib()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    srcs = [torch.randint(-2 ** 15, 2 ** 15 - 1, (1 << 23,), generator=gen,
+                          device="cuda", dtype=torch.int16)
+            for _ in range(5)]
+    dsts = [torch.zeros_like(srcs[0]) for _ in range(4)]
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    comp = rc._Completion(dev, dev, a.cuda_stream)
+    freed, seen = [None] * len(dsts), []
+    torch.cuda.synchronize()
+    for h in range(64):
+        k = h % len(dsts)
+        with torch.cuda.stream(a):
+            if freed[k] is not None:
+                a.wait_event(freed[k])  # the clone of k's last hop is done
+            rc._flagged_hop(lib, srcs[h % 5], dsts[k], comp, b)
+        with torch.cuda.stream(b):
+            seen.append(dsts[k].clone())
+            freed[k] = b.record_event()
+    torch.cuda.synchronize()
+    assert int(comp.words[2]) == 0 and comp.epoch == 64
+    for h, got in enumerate(seen):
+        assert torch.equal(got, srcs[h % 5]), h
+
+
+@pytest.mark.gpu
+def test_remote_copy_same_card_needs_no_completion():
+    """A hop within one card is the copy alone: no wait kernel, no
+    completion entry, and later work on the stream sees the bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
+    from ray_tpu_torch.ops.cuda import remote_copy as rc
+
+    src = torch.arange(1 << 20, dtype=torch.int32, device="cuda")
+    dst = torch.empty_like(src)
+    keys = set(rc._REG.pairs)
+    names = _cuda_kernels(lambda: (rc.remote_copy(src, dst),
+                                   dst.add_(1)))
+    assert set(rc._REG.pairs) == keys
+    assert not [n for n in names if "remote_wait_kernel" in n], names
+    assert len([n for n in names if "remote_copy_bulk_kernel" in n]) == 1
+    assert torch.equal(dst, src + 1)
 
 
 @pytest.mark.gpu

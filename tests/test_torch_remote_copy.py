@@ -8,6 +8,9 @@ its plain reference here.  Data is made with numpy from a seed, fed to
 both packages and compared as raw bits: a copy is exact.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,3 +112,92 @@ def test_plain_copy_handles_any_byte_count():
         dst = torch.zeros(nbytes, dtype=torch.uint8)
         rc.remote_copy(src, dst)
         assert torch.equal(src, dst)
+
+
+_STAGE = rc.STAGE_BYTES
+
+
+def _chunks(nbytes, blocks):
+    """The byte ranges [start, end) each block of K4's grid copies, as
+    ``remote_copy.cu``'s ``Chunks`` deals them: the whole 16-byte vectors
+    cut into chunks of one stage (the last one shorter), block b taking
+    chunks b, b + blocks, ...; the last block also copies the
+    nbytes % 16 bytes past them."""
+    whole = nbytes // 16 * 16
+    out = [[] for _ in range(blocks)]
+    for i, start in enumerate(range(0, whole, _STAGE)):
+        out[i % blocks].append((start, min(start + _STAGE, whole)))
+    if nbytes > whole:
+        out[-1].append((whole, nbytes))
+    return out
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("nbytes", [
+    0, 1, 15, 16, 17, _STAGE - 16, _STAGE, _STAGE + 16, 2 * _STAGE - 16,
+    2 * _STAGE, 2 * _STAGE + 16, 3 * _STAGE + 48, 132 * _STAGE - 16,
+    132 * _STAGE + 16, 2048 * 4096 * 2, 2048 * 4096 * 2 + 3,
+])
+def test_grid_chunks_cover_every_byte_once(nbytes, sms):
+    """K4's grid and the chunks the kernel deals its blocks: at most one
+    block per SM and never more than chunks; every byte in exactly one
+    chunk; every chunk of whole 16-byte vectors starting on a 16-byte
+    boundary and at most one stage long (only the last block also takes
+    the < 16 bytes past them); every block has a chunk unless the copy
+    has no whole vector; and the blocks' shares differ by at most one
+    chunk."""
+    blocks = rc.grid_blocks(nbytes, sms)
+    assert 1 <= blocks <= sms
+    got = _chunks(nbytes, blocks)
+    covered = sorted(r for block in got for r in block)
+    assert [covered[0][0], covered[-1][1]] == [0, nbytes] if nbytes \
+        else covered == []
+    for (_, end), (nxt, _) in zip(covered, covered[1:]):
+        assert end == nxt  # no gap, no overlap
+    whole = nbytes // 16 * 16
+    for b, block in enumerate(got):
+        for start, end in block:
+            assert start % 16 == 0 and start < end
+            if end <= whole:
+                assert (end - start) % 16 == 0 and end - start <= _STAGE
+            else:  # the tail: the last block only
+                assert b == blocks - 1 and (start, end) == (whole, nbytes)
+    counts = [len([r for r in block if r[1] <= whole]) for block in got]
+    assert min(counts) >= 1 or whole == 0
+    assert max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("nbytes,sms,blocks", [
+    (0, 132, 1), (15, 132, 1), (16, 132, 1), (_STAGE, 132, 1),
+    (_STAGE + 16, 132, 2), (4 * _STAGE - 16, 132, 4), (4 * _STAGE, 132, 4),
+    (4 * _STAGE + 16, 3, 3), (1 << 30, 132, 132),
+])
+def test_grid_follows_the_stage_size(nbytes, sms, blocks):
+    """One block per chunk of one stage, up to one per SM."""
+    assert rc.grid_blocks(nbytes, sms) == blocks
+
+
+def test_ring_fits_a_block():
+    """The wrapper's ring is the one ``remote_copy.cu`` is compiled with,
+    and one a block can hold: 2 to 16 stages of whole 16-byte vectors,
+    within 227 KB of shared memory less the mbarriers."""
+    path = os.path.join(os.path.dirname(rc.__file__), "csrc",
+                        "remote_copy.cu")
+    with open(path) as f:
+        src = f.read()
+    ring = {name: eval(expr, {}) for name, expr in re.findall(
+        r"constexpr int (STAGES|STAGE_BYTES) = ([0-9 *]+);", src)}
+    assert ring == {"STAGES": rc.STAGES, "STAGE_BYTES": rc.STAGE_BYTES}
+    assert 2 <= rc.STAGES <= 16
+    assert rc.STAGE_BYTES > 0 and rc.STAGE_BYTES % 16 == 0
+    assert rc.STAGES * rc.STAGE_BYTES <= 232448 - 8 * 16
+
+
+@pytest.mark.parametrize("src,dst,needed", [
+    ("cuda:0", "cuda:0", False),   # one card: its stream orders the hop
+    ("cuda:1", "cuda:1", False),
+    ("cuda:0", "cuda:1", True),    # a peer waits on its own stream
+    ("cuda:3", "cuda:0", True),
+])
+def test_completion_only_for_a_peer(src, dst, needed):
+    assert rc.needs_completion(torch.device(src), torch.device(dst)) is needed
