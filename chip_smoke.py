@@ -37,7 +37,11 @@ Phases, each printing one JSON line:
    saying why not.
 3. ``small_reference``: small fp32 models on the card against a plain
    reference: the forward through K1 against the reference attention,
-   greedy ``LLMEngine`` output against full-recompute argmax, and three
+   greedy ``LLMEngine`` output against full-recompute argmax, the serving
+   options held exact in fp32 (the speculative engine's tokens against
+   the plain engine's, chunked prefill against unchunked, the int8
+   folded attend against eager dequantization within 2e-2, and dense
+   ``generate(speculative=4)`` against greedy ``generate``), and three
    train steps (K1/K2/K3 under ``save_attn``) against the same steps
    through the plain versions on the CPU.
 4. ``channel``: a device-tier edge between two processes.  This process
@@ -57,7 +61,18 @@ Phases, each printing one JSON line:
    weights from a seed, b=1, s=2048); K1 must launch once per layer.
 7. ``serve``: ``LLMEngine`` on the same model answers five ~200-token
    requests, two sharing a 64-token prefix (greedy, 32 new tokens).
-8. ``train``: the 7B serving weights are freed, then ``make_llama_trainer``
+8. ``serve_options``: the engine's serving options on the same weights,
+   each beside the plain engine on the same prompts: speculative decoding
+   (``spec_tokens=4``) on the model's own loop (a greedy fixed point,
+   found by one forward of every token alone) and with the serve
+   prompts (drafts must be accepted on the loop), chunked prefill
+   (``prefill_chunk=256``, a 900-token prompt added; at least four
+   chunks) and the int8 KV pool (at most 0.52 of the bf16 pool's bytes),
+   with the agreement of their tokens with the plain engine's (bf16 is
+   not token-exact between GEMM shapes), decode tokens/s, the time per
+   chunk and to first token, and one decode step's device time through
+   each int8 path at two table capacities.
+9. ``train``: the 7B serving weights are freed, then ``make_llama_trainer``
    at Llama-2-7B width cut to 16 layers (fp32 params and AdamW state,
    bf16 activations, ``save_attn``) takes two warm-up and three timed
    steps on b=1, s=2048 random tokens; K1, K2 and K3 must each launch
@@ -88,6 +103,16 @@ SERVE_SLOTS = 4
 SERVE_MAX_LEN = 1024
 SERVE_BLOCK = 16
 SERVE_NEW_TOKENS = 32
+# serve_options: the drafter's tokens per verify, the plain tokens of
+# the warm run (from a serve prompt, and the loop prompt), the new tokens
+# of a request served alone on the loop prompt, the chunk budget and the
+# long prompt, and the table capacities of the int8 decode-step timing
+SPEC_TOKENS = 4
+LOOP_WARM_TOKENS = 96
+LOOP_NEW_TOKENS = 64
+PREFILL_CHUNK = 256
+LONG_PROMPT = 900
+CROSSOVER_LENS = (176, 512)
 TRAIN_LAYERS = 16
 TRAIN_STEPS = 3
 DEPTH_CUT = ("32 → 16 layers: fp32 params + AdamW state of the full depth "
@@ -1075,20 +1100,27 @@ def phase_ring(device="cuda"):
             "host_split_rings": RING_SPLIT_RINGS}
 
 
+def small_model(device="cuda"):
+    """The fp32 model of ``small_reference`` (head_dim 64), seed 1."""
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                           max_seq_len=512)
+    return cfg, llama_init(cfg, seed=1, device=device)
+
+
 def phase_small_reference(device="cuda"):
     """Small fp32 models on the card against a plain reference: logits
     through K1 against the reference attention (fp32 sums in another
-    order: 1e-4), and greedy engine tokens against full-recompute argmax
-    (token-exact)."""
+    order: 1e-4), greedy engine tokens against full-recompute argmax
+    (token-exact), the serving options held exact in fp32
+    (``SERVING_OPTION_CHECKS``) and three train steps."""
     import torch
 
     from ray_tpu_torch.llm import LLMEngine, SamplingParams
-    from ray_tpu_torch.models.llama import (LlamaConfig, llama_apply,
-                                            llama_init)
+    from ray_tpu_torch.models.llama import llama_apply
 
-    cfg = LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
-                           max_seq_len=512)  # head_dim 64
-    params = llama_init(cfg, seed=1, device=device)
+    cfg, params = small_model(device)
     gen = torch.Generator(device=device).manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen,
                            device=device)
@@ -1115,9 +1147,115 @@ def phase_small_reference(device="cuda"):
                                      f"argmax after {seq}")
             seq.append(tok)
     eng.blocks.assert_integrity()
+    options = {name: check(cfg, params, device)
+               for name, check in SERVING_OPTION_CHECKS.items()}
     return {"forward_k1_vs_ref_max_abs": fwd_err,
             "engine_tokens_checked": sum(len(o.token_ids) for o in outs),
-            **small_train_reference(device)}
+            "serving_options": options, **small_train_reference(device)}
+
+
+def _greedy_tokens(eng, prompts, max_tokens):
+    from ray_tpu_torch.llm import SamplingParams
+
+    outs = eng.generate(prompts, SamplingParams(temperature=0.0,
+                                                max_tokens=max_tokens))
+    eng.blocks.assert_integrity()
+    if any(o.error is not None for o in outs):
+        raise AssertionError([o.error for o in outs])
+    return [o.token_ids for o in outs]
+
+
+# bf16 on the card is not token-exact between GEMM shapes (a verify pass
+# of B·(G+1) rows, a prefill chunk), so the serving options are held
+# exact here, in fp32; at 7B bf16 ``serve_options`` reports agreement.
+def check_spec_engine(cfg, params, device="cuda"):
+    """``spec_tokens=4``: the same greedy tokens as the plain engine, with
+    at least one verify pass."""
+    from ray_tpu_torch.llm import LLMEngine
+
+    prompts = [[5, 9, 5, 9, 5, 9], [7, 1, 2, 8, 4], [3, 4, 3, 4, 3, 4],
+               [42, 42, 42]]
+    kw = dict(batch_slots=4, max_len=128, decode_window=1, device=device)
+    plain = _greedy_tokens(LLMEngine(cfg, params, **kw), prompts, 40)
+    eng = LLMEngine(cfg, params, spec_tokens=4, **kw)
+    spec = _greedy_tokens(eng, prompts, 40)
+    if spec != plain:
+        raise AssertionError(f"speculative engine {spec} != plain {plain}")
+    if not eng.spec_stats["verify_steps"]:
+        raise AssertionError(f"no verify pass: {eng.spec_stats}")
+    return dict(eng.spec_stats)
+
+
+def check_chunked_prefill(cfg, params, device="cuda"):
+    """``prefill_chunk=32``: the same greedy tokens as unchunked prefill,
+    with chunks prefilled."""
+    from ray_tpu_torch.llm import LLMEngine
+
+    long = [(7 * k + 3) % cfg.vocab_size for k in range(150)]
+    prompts = [long, [5, 9, 2], long[:40]]
+    kw = dict(batch_slots=2, max_len=256, block_size=16, device=device)
+    plain = _greedy_tokens(LLMEngine(cfg, params, **kw), prompts, 8)
+    eng = LLMEngine(cfg, params, prefill_chunk=32, **kw)
+    chunked = _greedy_tokens(eng, prompts, 8)
+    if chunked != plain:
+        raise AssertionError(f"chunked {chunked} != unchunked {plain}")
+    if not eng.prefill_stats["chunks"]:
+        raise AssertionError("no chunk was prefilled")
+    return {"chunks": eng.prefill_stats["chunks"]}
+
+
+def check_int8_folded(cfg, params, device="cuda"):
+    """One int8 decode step through the scale-folded attend against the
+    same step through eager dequantization: within the reference's own
+    2e-2 (``|folded - eager| <= 2e-2 + 2e-2 |eager|``)."""
+    import torch
+
+    from ray_tpu_torch.models import paged_generation as pg
+
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device=device)
+
+    pool = pg.init_kv_pool(cfg, 16, 8, kv_dtype="int8", device=device)
+    tables = ints([[1, 2, 3] + [0] * 5])
+    for pos in range(20):
+        _, pool = pg.paged_decode_step(params, ints([(7 * pos + 5) % 250]),
+                                       ints([pos]), tables, pool, cfg)
+    logits = {}
+    saved = pg.INT8_FOLD_MIN_CONTEXT
+    try:
+        for path, threshold in (("eager", 1 << 30), ("folded", 1)):
+            pg.INT8_FOLD_MIN_CONTEXT = threshold
+            logits[path], _ = pg.paged_decode_step(
+                params, ints([11]), ints([20]), tables,
+                {n: t.clone() for n, t in pool.items()}, cfg)
+    finally:
+        pg.INT8_FOLD_MIN_CONTEXT = saved
+    diff = (logits["folded"] - logits["eager"]).abs()
+    if bool((diff > 2e-2 + 2e-2 * logits["eager"].abs()).any()):
+        raise AssertionError(f"int8 folded vs eager: max |d| "
+                             f"{float(diff.max())}")
+    return {"folded_vs_eager_max_abs": float(diff.max())}
+
+
+def check_generate_speculative(cfg, params, device="cuda"):
+    """Dense ``generate(speculative=4)``: the same tokens as greedy
+    ``generate``."""
+    from ray_tpu_torch.models.generation import SamplingParams, generate
+
+    prompts = [[5, 9, 5, 9, 5, 9], [7, 1, 2, 8, 4], [3, 4, 3, 4, 3]]
+    sp = SamplingParams(temperature=0.0, max_tokens=24)
+    greedy = generate(params, cfg, prompts, sp)
+    spec = generate(params, cfg, prompts, sp, speculative=4)
+    if spec != greedy:
+        raise AssertionError(f"generate(speculative=4) {spec} != greedy "
+                             f"{greedy}")
+    return {"tokens": sum(map(len, spec))}
+
+
+SERVING_OPTION_CHECKS = {"spec_engine": check_spec_engine,
+                         "chunked_prefill": check_chunked_prefill,
+                         "int8_folded": check_int8_folded,
+                         "generate_speculative": check_generate_speculative}
 
 
 def small_train_reference(device="cuda", steps=3):
@@ -1295,19 +1433,308 @@ def phase_serve(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
             "decode_profile": profile_decode_window(eng, cfg.vocab_size)}
 
 
+def pool_bytes(pool) -> int:
+    return sum(t.numel() * t.element_size() for t in pool.values())
+
+
+def run_timed(eng, prompts, max_tokens):
+    """Greedy ``prompts`` through ``eng`` step by step.  Returns the
+    outputs, each request's time to first token (host seconds from
+    submission to its first token's fetch, stamped by wrapping
+    ``_record_token``) and the wall time."""
+    from ray_tpu_torch.llm import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens)
+    ids = [eng.submit(p, sp) for p in prompts]
+    first = {}
+    record = eng._record_token
+
+    def stamped(i, req, tok):
+        first.setdefault(req.request_id, time.perf_counter() - t0)
+        record(i, req, tok)
+
+    eng._record_token = stamped
+    t0 = time.perf_counter()
+    outs = {}
+    while eng.has_unfinished():
+        for o in eng.step():
+            outs[o.request_id] = o
+    wall_s = time.perf_counter() - t0
+    del eng._record_token
+    eng.blocks.assert_integrity()
+    for rid in ids:
+        o = outs[rid]
+        if o.error is not None or not o.token_ids or not all(
+                0 <= t < eng.cfg.vocab_size for t in o.token_ids):
+            raise AssertionError(f"request {rid}: error {o.error}, tokens "
+                                 f"{o.token_ids[:8]}")
+    return [outs[i].token_ids for i in ids], [first[i] for i in ids], wall_s
+
+
+def agreement(cfg, params, prompts, got, want):
+    """How far a run's greedy tokens (``got``) follow a reference run's
+    (``want``) on the same prompts: the share of positions equal, and per
+    request the first differing position with the top-two logit margin
+    there, from a full ``llama_apply`` of the reference's context (a
+    small margin: an argmax that bf16 rounding can flip)."""
+    import torch
+
+    from ray_tpu_torch.models.llama import llama_apply
+
+    same = total = 0
+    first = []
+    for p, a, b in zip(prompts, got, want):
+        same += sum(x == y for x, y in zip(a, b))
+        total += max(len(a), len(b))
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+        if d is None:
+            first.append(None)
+            continue
+        ctx = torch.tensor([p + b[:d]], device=params["embed"].device)
+        top = llama_apply(params, ctx, cfg)[0, -1].topk(2).values
+        first.append({"position": d, "top2_margin": float(top[0] - top[1])})
+    return {"share_equal": same / total, "first_diff": first}
+
+
+def repeated_bigrams(tokens) -> int:
+    """How many bigrams of ``tokens`` occurred earlier in it: the places a
+    prompt-lookup drafter (``spec_ngram=2``) could find a draft."""
+    seen, n = set(), 0
+    for bigram in zip(tokens, tokens[1:]):
+        n += bigram in seen
+        seen.add(bigram)
+    return n
+
+
+def greedy_fixed_points(cfg, params, device="cuda", chunk=4000):
+    """The model's loops of period one: every token t whose greedy
+    successor of the one-token context ``[t]`` is t itself, with its
+    top-two logit margin, largest margin first (one forward of every
+    vocabulary token alone, ``chunk`` at a time).  Over a context of t
+    alone each position's attention averages copies of one value, so
+    greedy decoding from ``[t]`` goes on repeating t as long as bf16
+    rounding keeps the margin."""
+    import torch
+
+    from ray_tpu_torch.models.llama import llama_apply
+
+    found = []
+    for start in range(0, cfg.vocab_size, chunk):
+        toks = torch.arange(start, min(cfg.vocab_size, start + chunk),
+                            device=device)
+        top = llama_apply(params, toks[:, None], cfg)[:, 0].topk(2, dim=-1)
+        for j in (top.indices[:, 0] == toks).nonzero()[:, 0].tolist():
+            found.append((start + j, float(top.values[j, 0]
+                                           - top.values[j, 1])))
+    return sorted(found, key=lambda f: -f[1])
+
+
+def decode_rate(eng):
+    t = eng.stats()["timing"]
+    return t["decode_tokens"] / t["decode_s"] if t["decode_s"] else None
+
+
+def phase_serve_options(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
+    """The engine's serving options on the 7B bf16 weights, each beside
+    the plain engine on the same prompts (greedy):
+
+    (a) speculative decoding: a plain run of ``LOOP_WARM_TOKENS`` from
+        the model's strongest greedy fixed point (its own loop) is the
+        loop prompt, served alone and then with the five serve prompts
+        at ``spec_tokens=SPEC_TOKENS``; beside it, how often the plain
+        run from the first serve prompt (in the same warm run) repeats a
+        bigram;
+    (b) chunked prefill: the five serve prompts and one of
+        ``LONG_PROMPT`` tokens at ``prefill_chunk=PREFILL_CHUNK``;
+    (c) the int8 KV pool: the five serve prompts, then one decode step's
+        device time through each int8 path and the bf16 pool at the table
+        capacities ``CROSSOVER_LENS``.
+    """
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm import LLMEngine
+
+    kw = dict(max_len=max_len, block_size=SERVE_BLOCK, seed=0,
+              device=device)
+    prompts = serve_prompts(cfg.vocab_size)
+    part_s = {}
+    t0 = time.perf_counter()
+
+    # (a) speculative decoding.  From a serve prompt the random-weight
+    # model's greedy trajectory need not loop at all (``serve_prompt``
+    # reports its repeated bigrams); its own loop is found directly: a
+    # greedy fixed point, whose plain trajectory is the loop prompt
+    fixed = greedy_fixed_points(cfg, params, device)
+    if not fixed:
+        raise AssertionError("the model has no greedy fixed point: no "
+                             "loop of its own to speculate on")
+    t = fixed[0][0]
+    warm = LLMEngine(cfg, params, batch_slots=2, **kw)
+    walk, tail = run_timed(warm, [prompts[0], [t]], LOOP_WARM_TOKENS)[0]
+    loop = [t] + tail
+    del warm
+    spec = {"serve_prompt": {"greedy_tokens": len(walk),
+                             "repeated_bigrams": repeated_bigrams(walk),
+                             "distinct_tokens": len(set(walk))},
+            "fixed_points": [{"token": f, "top2_margin": m}
+                             for f, m in fixed],
+            "loop_prompt_tokens": len(loop),
+            "loop_prompt_share_of_fixed_point": loop.count(t) / len(loop)}
+    for name, batch, slots, n in (
+            ("loop", [loop], 1, LOOP_NEW_TOKENS),
+            ("mixed", [loop] + prompts, SERVE_SLOTS, SERVE_NEW_TOKENS)):
+        plain = LLMEngine(cfg, params, batch_slots=slots, **kw)
+        want = run_timed(plain, batch, n)[0]
+        eng = LLMEngine(cfg, params, batch_slots=slots,
+                        spec_tokens=SPEC_TOKENS, **kw)
+        got, _, wall_s = run_timed(eng, batch, n)
+        st = dict(eng.spec_stats)
+        spec[name] = {
+            "requests": len(batch), "slots": slots, "new_tokens": n,
+            "wall_s": wall_s,
+            "spec_stats": st,
+            "accepted_per_verify": (st["accepted"] / st["verify_steps"]
+                                    if st["verify_steps"] else None),
+            "acceptance": (st["accepted"] / st["proposed"]
+                           if st["proposed"] else None),
+            "decode_tokens_per_s": decode_rate(eng),
+            "plain_decode_tokens_per_s": decode_rate(plain),
+            "arm_tps": {str(k): v for k, v in eng._arm_tps.items()},
+            "agreement_with_plain": agreement(cfg, params, batch, got,
+                                              want)}
+        if name == "loop" and not (st["proposed"] > 0
+                                   and st["accepted"] > 0):
+            raise AssertionError(f"no draft accepted on the loop prompt: "
+                                 f"{st}")
+        del plain, eng
+
+    part_s["speculative"] = time.perf_counter() - t0
+
+    # (b) chunked prefill
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    batch = prompts + [rng.integers(3, cfg.vocab_size,
+                                    size=LONG_PROMPT).tolist()]
+    plain = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS, **kw)
+    want, ttft_plain, _ = run_timed(plain, batch, SERVE_NEW_TOKENS)
+    eng = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                    prefill_chunk=PREFILL_CHUNK, **kw)
+    chunk_ms = []
+    admit_chunk = eng._admit_chunk
+
+    def timed_chunk(*a, **k):
+        torch.cuda.synchronize()
+        t0, before = time.perf_counter(), eng.prefill_stats["chunks"]
+        res = admit_chunk(*a, **k)
+        torch.cuda.synchronize()
+        if eng.prefill_stats["chunks"] > before:
+            chunk_ms.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    eng._admit_chunk = timed_chunk
+    got, ttft, _ = run_timed(eng, batch, SERVE_NEW_TOKENS)
+    chunks = eng.prefill_stats["chunks"]
+    if chunks < 4:
+        raise AssertionError(f"{chunks} chunks prefilled, expected >= 4")
+    chunked = {"prompt_tokens": [len(p) for p in batch],
+               "prefill_chunk": PREFILL_CHUNK, "chunks": chunks,
+               "chunk_ms": chunk_ms,
+               "short_ttft_s": ttft[:-1], "short_ttft_s_unchunked":
+               ttft_plain[:-1], "long_ttft_s": ttft[-1],
+               "long_ttft_s_unchunked": ttft_plain[-1],
+               "decode_tokens_per_s": decode_rate(eng),
+               "plain_decode_tokens_per_s": decode_rate(plain),
+               "agreement_with_unchunked": agreement(cfg, params, batch,
+                                                     got, want)}
+    del plain, eng
+
+    part_s["chunked_prefill"] = time.perf_counter() - t0
+
+    # (c) the int8 KV pool
+    t0 = time.perf_counter()
+    plain = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS, **kw)
+    want = run_timed(plain, prompts, SERVE_NEW_TOKENS)[0]
+    eng = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                    kv_cache_dtype="int8", **kw)
+    got = run_timed(eng, prompts, SERVE_NEW_TOKENS)[0]
+    ratio = pool_bytes(eng.pool) / pool_bytes(plain.pool)
+    if not ratio <= 0.52:
+        raise AssertionError(f"int8 pool is {ratio:.4f} of the bf16 pool")
+    int8 = {"pool_bytes": pool_bytes(eng.pool),
+            "bf16_pool_bytes": pool_bytes(plain.pool),
+            "pool_ratio": ratio,
+            "decode_tokens_per_s": decode_rate(eng),
+            "bf16_decode_tokens_per_s": decode_rate(plain),
+            "first_token_equal": [a[:1] == b[:1] for a, b in zip(got, want)],
+            "agreement_with_bf16_pool": agreement(cfg, params, prompts, got,
+                                                  want)}
+    del plain, eng
+    part_s["int8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int8["decode_step_device_ms"] = int8_crossover(cfg, params, device)
+    part_s["int8_crossover"] = time.perf_counter() - t0
+    return {"speculative": spec, "chunked_prefill": chunked, "int8": int8,
+            "part_s": part_s}
+
+
+def int8_crossover(cfg, params, device="cuda"):
+    """Device time (torch.profiler, all kernels) of one ``SERVE_SLOTS``-slot
+    ``paged_decode_step`` with full block tables, at each capacity of
+    ``CROSSOVER_LENS``: the int8 pool through eager dequantization and
+    through the scale-folded attend (``INT8_FOLD_MIN_CONTEXT`` moved to
+    force each), and the bf16 pool."""
+    import torch
+
+    from ray_tpu_torch.models import paged_generation as pg
+
+    out = {}
+    saved = pg.INT8_FOLD_MIN_CONTEXT
+    try:
+        for ml in CROSSOVER_LENS:
+            mb = ml // SERVE_BLOCK
+            tables = torch.arange(1, SERVE_SLOTS * mb + 1, dtype=torch.int32,
+                                  device=device).reshape(SERVE_SLOTS, mb)
+            tok = torch.full((SERVE_SLOTS,), 7, dtype=torch.int32,
+                             device=device)
+            cur = torch.full((SERVE_SLOTS,), ml - 1, dtype=torch.int32,
+                             device=device)
+            row = {}
+            for path, kv, threshold in (("int8_eager", "int8", 1 << 30),
+                                        ("int8_folded", "int8", 0),
+                                        ("bf16", None, saved)):
+                pg.INT8_FOLD_MIN_CONTEXT = threshold
+                pool = pg.init_kv_pool(cfg, SERVE_SLOTS * mb + 1,
+                                       SERVE_BLOCK, kv_dtype=kv,
+                                       device=device)
+                busy, _ = rank_kernels(device_times(
+                    lambda: pg.paged_decode_step(params, tok, cur, tables,
+                                                 pool, cfg), iters=2))
+                row[path] = busy
+                del pool
+            out[str(ml)] = row
+    finally:
+        pg.INT8_FOLD_MIN_CONTEXT = saved
+    return out
+
+
 def device_times(fn, iters: int = 1):
     """Device time per call of ``fn`` by kernel name, over ``iters`` calls
     under ``torch.profiler`` (after one warm-up call when ``iters > 1``);
-    empty when the profiler records no device activity."""
+    empty when the profiler records no device activity.  Only the CUDA
+    activity is traced: the host's ops would add nothing read here and
+    most of the profiler's own time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if not torch.cuda.is_available():  # a rehearsal on the CPU
+        return {}
     if iters > 1:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1468,6 +1895,13 @@ def main() -> int:
     emit({"phase": "serve", "model": "llama2_7b", "slots": SERVE_SLOTS,
           "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, **serve,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    t0 = time.perf_counter()
+    options = phase_serve_options(cfg, params)
+    emit({"phase": "serve_options", "model": "llama2_7b",
+          "layers": cfg.num_layers, "depth_cut": False,
+          "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK,
+          "spec_tokens": SPEC_TOKENS, **options,
+          "phase_s": time.perf_counter() - t0})
 
     del params
     gc.collect()

@@ -12,16 +12,22 @@ Counterpart of ``ray_tpu/llm/engine.py`` with the same structure:
   **decode window** of K device-chained steps with one host sync.
 * **Preemption**: out of blocks mid-decode, the youngest request is rolled
   back to the queue and re-prefills later (recompute preemption).
+* **Speculative decoding** (``spec_tokens``): prompt-lookup drafts from
+  each request's own history, verified in one batched
+  ``paged_verify_step``; a throughput bandit between the verify pass and
+  the decode window decides when to speculate.
+* **Chunked prefill** (``prefill_chunk``): a per-step token budget;
+  long prompts prefill in block-aligned chunks that resume through
+  ordinary prefix hits.
+* **The int8 KV pool** (``kv_cache_dtype="int8"``).
 
 PyTorch runs eagerly, so there is no jit; prefill lengths stay bucketed
 (``_bucket``) so padding is identical to the reference.  The decode loop
-is a Python loop of eager ops; CUDA graphs for it are a later PR.
+is a Python loop of eager ops.
 
 Not in this slice (each raises ``NotImplementedError`` naming where it
-comes): speculative decoding (``spec_tokens``), chunked prefill
-(``prefill_chunk``), the int8 KV pool, mesh sharding, and the
-disaggregated-serving handoff (``prefill_only``, ``export_kv``,
-``adopt_prefilled``).
+comes): mesh sharding and the disaggregated-serving handoff
+(``prefill_only``, ``export_kv``, ``adopt_prefilled``).
 """
 
 from __future__ import annotations
@@ -36,11 +42,12 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.generation import SamplingParams
+from ray_tpu_torch.models.generation import SamplingParams, _propose_ngram
 from ray_tpu_torch.models.llama import LlamaConfig, llama_init
 from ray_tpu_torch.models.paged_generation import (gather_prefix,
                                                    init_kv_pool,
                                                    paged_decode_sample,
+                                                   paged_verify_step,
                                                    prefill_suffix,
                                                    sample_token_batch)
 
@@ -89,6 +96,11 @@ class Request:
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     blocks: List[int] = dataclasses.field(default_factory=list)
+    # chunked prefill: blocks already written for this prompt, refs HELD
+    # (pinned against ordinary pool pressure; forfeited by
+    # _yield_chunk_pins when a starved queue head needs the pool);
+    # transferred into ``blocks`` at final admission
+    chunk_blocks: List[int] = dataclasses.field(default_factory=list)
     # cached prompt hash-chain keys (prompt_tokens are immutable while
     # queued; preemption rewrites them and must clear this)
     chain_keys: Optional[List[Any]] = None
@@ -214,16 +226,9 @@ class LLMEngine:
                  num_blocks: Optional[int] = None, decode_window: int = 16,
                  seed: int = 0, device=None, mesh=None,
                  kv_cache_dtype: Optional[str] = None,
-                 spec_tokens: int = 0, prefill_chunk: int = 0):
-        if spec_tokens > 0:
-            raise _later("speculative decoding (spec_tokens > 0, "
-                         "paged_verify_step and the arm bandit)",
-                         "the speculative-decoding slice")
-        if prefill_chunk > 0:
-            raise _later("chunked prefill (prefill_chunk > 0)",
-                         "a later serving slice")
-        if kv_cache_dtype == "int8":
-            raise _later("the int8 KV pool", "a later serving slice")
+                 spec_tokens: int = 0, spec_ngram: int = 2,
+                 spec_lookup_window: int = 512, prefill_chunk: int = 0,
+                 arm_clock=None):
         if mesh is not None:
             raise _later("mesh (tensor-parallel) serving",
                          "the parallel slice")
@@ -251,6 +256,46 @@ class LLMEngine:
         # (token/position stay device tensors), sampled tokens fetched
         # ONCE per window
         self.K = max(1, decode_window)
+        # prompt-lookup speculative decoding: the host drafts from each
+        # request's own history, one batched paged_verify_step checks
+        # pending + G drafts, greedy acceptance keeps the longest matching
+        # prefix + a bonus token: up to G+1 tokens per forward (one
+        # weights read), token-exact against plain greedy decode.  Only
+        # fully-greedy batches speculate.
+        self.G = max(0, int(spec_tokens))
+        if self.G and int(spec_ngram) < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {spec_ngram}")
+        self.spec_ngram = int(spec_ngram)
+        # drafting scans the LAST spec_lookup_window history tokens per
+        # step (O(window) host work per slot per step)
+        if self.G and int(spec_lookup_window) < 1:
+            raise ValueError("spec_lookup_window must be >= 1")
+        self.spec_lookup_window = int(spec_lookup_window)
+        self.spec_stats = {"proposed": 0, "accepted": 0, "verify_steps": 0,
+                           "backoffs": 0, "dry_rests": 0}
+        # the bandit's clock: every arm timing (window + verify) reads
+        # THIS callable, so tests inject a deterministic tick counter and
+        # the win-arm decision becomes a pure function of the workload
+        self._arm_clock = arm_clock if arm_clock is not None \
+            else time.perf_counter
+        self._arm_seen: set = set()  # first samples persist across resets
+        # dynamic disable: a verify pass that mispredicts yields ~1 token
+        # per host sync against decode_window per sync, so low acceptance
+        # rests the drafter (acceptance EMA), and a two-arm bandit times
+        # both paths (EMA of host-observed per-slot tokens/s).  All state
+        # is initialized by reset_spec_state (the one place defaults live)
+        self.reset_spec_state()
+        # chunked prefill: cap the prompt tokens prefilled per step so a
+        # long prompt can't stall the decode batch.  Chunks are
+        # block-aligned; their full blocks register in the prefix cache
+        # and the NEXT admission resumes from them via ordinary prefix
+        # hits: no separate partial state.
+        self.prefill_chunk = max(0, int(prefill_chunk))
+        if self.prefill_chunk and self.prefill_chunk < self.bs:
+            raise ValueError(
+                f"prefill_chunk ({prefill_chunk}) must be >= block_size "
+                f"({self.bs})")
+        self.prefill_stats = {"chunks": 0}
         self._ids = itertools.count()
         self._queue: "collections.deque[Request]" = collections.deque()
         self._failed: List[Request] = []  # per-request admission failures
@@ -265,8 +310,10 @@ class LLMEngine:
         self._temps_d = None
         self._dev_dirty = True
         # host wall time between the engine's own sync points: admission
-        # ends in the first-token fetch and a window in its token fetch,
-        # so these are device-complete times
+        # ends in the first-token fetch, a window in its token fetch and a
+        # verify pass in its argmax fetch, so these are device-complete
+        # times (a step that only prefills chunks has no fetch of its
+        # own: its chunk's device time lands in that step's decode)
         self.timing = {"prefill_s": 0.0, "prefill_tokens": 0,
                        "decode_s": 0.0, "decode_tokens": 0}
 
@@ -291,12 +338,16 @@ class LLMEngine:
 
     def abort(self, request_id: int) -> bool:
         """Drop a request whose client stopped waiting.  A queued request
-        is removed outright; an active one is marked ``done`` so the next
+        is removed outright, releasing any chunk-prefill block pins it
+        accumulated; an active one is marked ``done`` so the next
         ``step()`` retires it through the ordinary path (slot cleared,
         blocks released).  Returns ``True`` when the request was found."""
         for qi, req in enumerate(self._queue):
             if req.request_id == request_id:
                 del self._queue[qi]
+                for bid in req.chunk_blocks:
+                    self.blocks.release(bid)
+                req.chunk_blocks = []
                 return True
         for req in self._slots:
             if req is not None and req.request_id == request_id:
@@ -320,20 +371,28 @@ class LLMEngine:
 
     def step(self) -> List[GenerationOutput]:
         """Admit queued requests into free slots (prefix-cached prefill),
-        run one decode window for all active slots, retire finished."""
+        run one verify pass or decode window for all active slots, retire
+        finished."""
         # 1. admit: prefills run back to back; the first tokens of ALL
         # admissions are sampled and fetched in ONE host sync
         t0 = time.perf_counter()
         admitted: List[Tuple[int, torch.Tensor]] = []
         prefilled = 0
+        budget = self.prefill_chunk or None  # tokens of prefill this step
         for i in range(self.B):
             if self._slots[i] is None and self._queue:
-                res = self._admit(i)
+                res = self._admit(i, budget)
                 if res is None:
                     break  # out of blocks: stop admitting this step
-                logits, n_suffix = res
+                kind, logits, used = res
+                prefilled += used
+                if budget is not None:
+                    budget -= used
+                if kind == "partial":
+                    break  # head request still prefilling; slot stays free
                 admitted.append((i, logits))
-                prefilled += n_suffix
+                if budget is not None and budget <= 0:
+                    break  # spent: further walks would only defer
         if admitted:
             lg = torch.stack([d for _, d in admitted])[:, 0]
             temps = torch.tensor([self._slots[i].sampling.temperature
@@ -347,7 +406,13 @@ class LLMEngine:
 
         active = [i for i in range(self.B) if self._slots[i] is not None
                   and not self._slots[i].done]
+        if active and self.G and self._try_speculate(active):
+            active = []  # tokens for this step came from the verify pass
         if active:
+            # arm timing starts BEFORE block growth / mirror refresh /
+            # uploads so the window arm carries the same per-step host
+            # costs the verify arm does (symmetric bandit comparison)
+            t_arm = self._arm_clock()
             # ensure every active slot has blocks for the whole window;
             # preempt the youngest request if the pool is exhausted
             active = self._ensure_decode_blocks(active, horizon=self.K)
@@ -372,6 +437,13 @@ class LLMEngine:
             self._dev = (tok_d, cur_d)
             # ONE host sync for the whole window_k * B window
             window = torch.stack(toks).cpu().numpy()
+            if self.G:
+                self._spec_streak = 0
+                # per-ARITY EMA: short windows amortize the sync
+                # differently, so each arity gets its own sample stream;
+                # the verify gate compares against the arity it displaces
+                self._observe_arm(("window", window_k), window_k,
+                                  self._arm_clock() - t_arm)
             recorded = 0
             for step in range(window_k):
                 for i in active:
@@ -417,8 +489,9 @@ class LLMEngine:
 
     def stats(self) -> Dict[str, Any]:
         """Engine signals: queue depth, slot occupancy, block-pool
-        pressure, prefix-cache counters and the prefill/decode timing.
-        Host-side bookkeeping only — no device sync."""
+        pressure, prefix-cache, chunk and speculation counters and the
+        prefill/decode timing.  Host-side bookkeeping only — no device
+        sync."""
         used = sum(1 for s in self._slots if s is not None)
         capacity = max(1, self.num_blocks - 1)  # excl. the scratch block
         available = self.blocks.available()
@@ -435,6 +508,8 @@ class LLMEngine:
             "block_size": self.bs,
             "kv_cache_dtype": self.kv_cache_dtype or "native",
             "prefix_cache": dict(self.blocks.stats),
+            "prefill_chunks": self.prefill_stats["chunks"],
+            "spec": dict(self.spec_stats),
             "timing": dict(self.timing),
         }
 
@@ -448,24 +523,29 @@ class LLMEngine:
             keys.append(parent)
         return keys
 
-    def _admit(self, i: int) -> Optional[Tuple[torch.Tensor, int]]:
+    def _admit(self, i: int, budget: Optional[int] = None):
         """Prefill the next queued request into slot i.
 
-        Returns ``(last-position logits [1, vocab] on the device, tokens
-        prefilled)`` when the request is admitted (the caller batch-samples
-        all admissions with one sync), or None when the pool can't hold the
+        Returns ``("full", last-position logits [1, vocab] on the device,
+        tokens prefilled)`` when the request is admitted (the caller
+        batch-samples all admissions with one sync), ``("partial", None,
+        tokens prefilled)`` when only a block-aligned CHUNK of a long
+        prompt was prefilled this step (the request stays queued holding
+        refs on its chunk blocks), or None when the pool can't hold the
         suffix (queue left untouched).
         """
         req = self._queue[0]
         toks = req.prompt_tokens
         n = len(toks)
-        # prefix walk: reuse every cached block (but always leave >=1
+        # prefix walk: resume from this prompt's own pinned chunk blocks,
+        # then reuse every further cached block (but always leave >=1
         # token to prefill — its logits seed sampling)
+        pinned = list(req.chunk_blocks)
         if req.chain_keys is None:
             req.chain_keys = self._prompt_chain_keys(toks)
         keys = req.chain_keys
-        hit_blocks: List[int] = []
-        for key in keys:
+        hit_blocks: List[int] = pinned[:]
+        for key in keys[len(pinned):]:
             if len(hit_blocks) * self.bs >= n - 1:
                 break
             bid = self.blocks.acquire_cached(key)
@@ -474,6 +554,8 @@ class LLMEngine:
             hit_blocks.append(bid)
         cached_len = len(hit_blocks) * self.bs
         if cached_len > n - 1:  # whole prompt cached: recompute last block
+            # only ever an ACQUIRED block: chunk takes are capped at
+            # (n-1)//bs blocks, so the pinned prefix can't cross n-1
             self.blocks.release(hit_blocks.pop())
             cached_len = len(hit_blocks) * self.bs
         suffix = toks[cached_len:]
@@ -488,24 +570,37 @@ class LLMEngine:
             # THIS request (an admit/preempt livelock otherwise), never
             # the whole batch
             self._queue.popleft()
-            for bid in hit_blocks:
+            for bid in hit_blocks:  # includes any pinned chunk blocks
                 self.blocks.release(bid)
+            req.chunk_blocks = []
             req.done = True
             req.error = (
                 f"KV pool ({self.num_blocks} blocks of {self.bs}) cannot "
                 f"hold one sequence of up to {worst} blocks; raise "
                 f"num_blocks or lower max_tokens")
             self._failed.append(req)
-            return self._admit(i) if self._queue else None
+            return self._admit(i, budget) if self._queue else None
+        if budget is not None and len(suffix) > budget:
+            # long prompt: prefill one block-aligned chunk instead of
+            # stalling the decode batch on the whole suffix (checked
+            # AFTER the oversized fail-fast so impossible requests never
+            # chunk-prefill)
+            return self._admit_chunk(i, req, hit_blocks, len(pinned),
+                                     cached_len, budget, keys)
         if self.blocks.available() < need:
-            for bid in hit_blocks:
-                self.blocks.release(bid)
+            for bid in hit_blocks[len(pinned):]:
+                self.blocks.release(bid)  # pinned chunk progress stays
+            if self._yield_chunk_pins():
+                # freed capacity is usable NOW: retry instead of wasting
+                # a whole engine step (the decode path does the same)
+                return self._admit(i, budget)
             return None
-        if hit_blocks:
+        if len(hit_blocks) > len(pinned):
             self.blocks.stats["prefix_hits"] += 1
 
         new_blocks = [self.blocks.alloc() for _ in range(need)]
         req.blocks = hit_blocks + new_blocks
+        req.chunk_blocks = []  # refs transferred into req.blocks
         self._queue.popleft()
         self._slots[i] = req
 
@@ -518,7 +613,26 @@ class LLMEngine:
         self._tables[i] = 0
         self._tables[i, :len(req.blocks)] = req.blocks
         self._dev_dirty = True
-        return logits, len(suffix)
+        return ("full", logits, len(suffix))
+
+    def _yield_chunk_pins(self, include_head: bool = False) -> bool:
+        """Break the pinned-chunk livelock: when an allocation stalls on
+        pool pressure while a queued prompt pins chunk progress, one
+        victim forfeits its pins: the registered blocks retire into the
+        LRU (contents may still re-hit; under real pressure they evict
+        and that chunk recomputes), so the pool can drain again.
+        Admission calls exclude the queue head (the head is the one
+        asking); the decode-pressure path passes include_head=True, a
+        chunk recompute being far cheaper than recompute-preempting a
+        live request.  Returns True when a victim forfeited pins."""
+        start = 0 if include_head else 1
+        for other in list(self._queue)[start:]:
+            if other.chunk_blocks:
+                for bid in other.chunk_blocks:
+                    self.blocks.release(bid)
+                other.chunk_blocks = []
+                return True
+        return False
 
     def _run_prefill(self, suffix: List[int], cached_len: int,
                      blocks: List[int], hit_blocks: List[int]):
@@ -549,6 +663,48 @@ class LLMEngine:
             torch.as_tensor(dst_o, device=dev), self.pool, cfg=self.cfg)
         return logits
 
+    def _admit_chunk(self, i: int, req: Request, hit_blocks: List[int],
+                     n_pinned: int, cached_len: int, budget: int,
+                     keys: List[Any]):
+        """Prefill one block-aligned chunk of a long prompt WITHOUT
+        occupying a slot: write the chunk's KV, register its (full)
+        blocks under the prefix hash chain, and PIN them on the request
+        (refs held in ``req.chunk_blocks``) so ordinary pool pressure
+        can't evict the prompt's own progress; the next admission resumes
+        from the pinned prefix directly.  Pins are forfeited only by
+        ``_yield_chunk_pins`` (starved queue head).  The request stays at
+        the queue head."""
+        toks = req.prompt_tokens
+        # chunk end: block-aligned, within budget, and NEVER the whole
+        # remaining suffix (the final partial admission must sample)
+        take = ((cached_len + budget) // self.bs) * self.bs - cached_len
+        take = min(take, ((len(toks) - 1 - cached_len) // self.bs)
+                   * self.bs)
+        if take < self.bs:
+            # budget tail can't cover one full block this step: defer
+            # (short prompts can still full-admit from the same tail)
+            for bid in hit_blocks[n_pinned:]:
+                self.blocks.release(bid)
+            return ("partial", None, 0)
+        n_need = take // self.bs
+        if self.blocks.available() < n_need:
+            for bid in hit_blocks[n_pinned:]:
+                self.blocks.release(bid)
+            if self._yield_chunk_pins():
+                return self._admit(i, budget)  # retry with freed blocks
+            return None  # pool pressure: try again later
+        chunk = toks[cached_len:cached_len + take]
+        new_blocks = [self.blocks.alloc() for _ in range(n_need)]
+        self._run_prefill(chunk, cached_len, hit_blocks + new_blocks,
+                          hit_blocks)  # logits discarded: nothing samples
+        for j, bid in enumerate(new_blocks):
+            self.blocks.register(bid, keys[cached_len // self.bs + j])
+        # every block (prior pinned + newly acquired hits + new) is now
+        # pinned on the request; refs transfer to req.blocks at admission
+        req.chunk_blocks = hit_blocks + new_blocks
+        self.prefill_stats["chunks"] += 1
+        return ("partial", None, take)
+
     def _ensure_decode_blocks(self, active: List[int],
                               horizon: int = 1) -> List[int]:
         """Allocate blocks covering the next ``horizon`` write positions
@@ -568,6 +724,11 @@ class LLMEngine:
             while blk_idx >= len(req.blocks):
                 bid = self.blocks.alloc()
                 if bid is None:
+                    # cheapest relief first: a queued prompt's forfeited
+                    # chunk pins cost at most one chunk recompute, vs a
+                    # whole-request re-prefill for a preemption
+                    if self._yield_chunk_pins(include_head=True):
+                        continue
                     victim = self._preempt_youngest()
                     if victim is None or victim == i:
                         break  # self-preempted: slot is back in the queue
@@ -600,9 +761,11 @@ class LLMEngine:
         self.blocks.stats["preemptions"] += 1
         return i
 
+    # -- speculative decoding ------------------------------------------------
+
     def _window_arity(self, active: List[int]) -> int:
-        """The decode-window length for these slots: min(K, longest
-        remaining budget)."""
+        """The decode-window length step() would run for these slots:
+        min(K, longest remaining budget)."""
         rem = 1
         for i in active:
             req = self._slots[i]
@@ -611,6 +774,163 @@ class LLMEngine:
                     - len(req.out_tokens))
             rem = max(rem, r)
         return max(1, min(self.K, rem))
+
+    def _observe_arm(self, key, tokens: float, elapsed: float):
+        """EMA per key ("verify" or ("window", arity)).  A key's first
+        sample is discarded: in the reference it holds the compilation.
+        Eager PyTorch compiles nothing, but the rule stays so that the
+        same clock gives the same decisions in both packages."""
+        if elapsed <= 0 or tokens <= 0:
+            return
+        if key not in self._arm_seen:
+            self._arm_seen.add(key)
+            return
+        tps = tokens / elapsed
+        prev = self._arm_tps.get(key)
+        self._arm_tps[key] = tps if prev is None else (
+            0.7 * prev + 0.3 * tps)
+
+    def reset_spec_state(self):
+        """Reset every drafter/bandit state field to its initial value:
+        the ONE place the defaults live (benchmarks and tests use this
+        instead of poking private fields)."""
+        self._spec_ema = 1.0
+        self._spec_backoff = 0
+        self._spec_backoff_len = 8
+        self._spec_dry = 0
+        self._spec_streak = 0
+        # keyed "verify" and ("window", arity): per-arity EMAs
+        self._arm_tps: Dict[Any, float] = {}
+        self.spec_stats.update(proposed=0, accepted=0, verify_steps=0,
+                               backoffs=0, dry_rests=0)
+
+    def _spec_rest(self, dry: bool = False):
+        """Rest the drafter for a growing number of steps (ONE escalation
+        rule for every trigger).  ``dry`` rests (persistent draftless
+        scans: the drafter had nothing to say) are counted apart from
+        ``backoffs`` (the bandit judged the window faster, or acceptance
+        collapsed)."""
+        self.spec_stats["dry_rests" if dry else "backoffs"] += 1
+        self._spec_backoff = self._spec_backoff_len
+        self._spec_backoff_len = min(self._spec_backoff_len * 2, 256)
+
+    def _try_speculate(self, active: List[int]) -> bool:
+        """Prompt-lookup speculative step: draft up to G tokens per active
+        slot from its own history, verify pending + drafts in ONE batched
+        ``paged_verify_step``, accept the longest greedy-matching prefix
+        plus the bonus token.  Returns False (caller falls back to the
+        plain decode window) when any active slot samples (temp > 0:
+        greedy acceptance would skew its distribution), while the
+        drafter rests, or when no slot has a draft.  A draftless minority
+        slot rides the verify pass with an empty proposal (its bonus
+        token only)."""
+        if any(self._slots[i].sampling.temperature > 0.0 for i in active):
+            return False
+        if self._spec_backoff > 0:
+            self._spec_backoff -= 1
+            return False
+        if self._arm_tps.get("verify") is not None and self._spec_streak >= 16:
+            # periodic window probe: an always-drafting, high-acceptance
+            # workload would otherwise NEVER sample the window arm and
+            # the bandit could lock into a slower verify path forever
+            self._spec_streak = 0
+            return False
+        # arm timing starts HERE: the drafting scan is a cost unique to
+        # the verify path, so it counts against that arm
+        t_arm = self._arm_clock()
+        t0 = time.perf_counter()
+        drafts: Dict[int, List[int]] = {}
+        W = self.spec_lookup_window
+        for i in active:
+            req = self._slots[i]
+            # bounded lookup window (slice BEFORE concatenating: the full
+            # lists are long)
+            hist = (req.prompt_tokens[-W:] + req.out_tokens[-W:])[-W:]
+            drafts[i] = _propose_ngram(hist, self.G, self.spec_ngram)[:self.G]
+        if not any(drafts.values()):
+            # a run of FULLY draftless steps rests the drafter like low
+            # acceptance does: never-drafting workloads must not pay the
+            # history scan every single step
+            self._spec_dry += 1
+            if self._spec_dry >= 4:
+                self._spec_dry = 0
+                self._spec_rest(dry=True)
+            return False
+        self._spec_dry = 0
+        active = self._ensure_decode_blocks(active, horizon=self.G + 1)
+        if not active:
+            return True  # everything was preempted; step's retire handles it
+        # the window arity this verify DISPLACES, computed before
+        # acceptance mutates budgets, so the gate compares like-for-like
+        displaced_arity = self._window_arity(active)
+        tokens = np.zeros((self.B, self.G + 1), np.int32)
+        for i in active:
+            tokens[i, 0] = self._next_token[i]
+            d = drafts.get(i, [])
+            tokens[i, 1:1 + len(d)] = d
+        # reuse the resident tables mirror: _ensure_decode_blocks sets
+        # _dev_dirty whenever it actually grows a table
+        self._refresh_device_mirrors()
+        logits, self.pool = paged_verify_step(
+            self.params, torch.tensor(tokens, device=self.device),
+            torch.tensor(self._cur_len, device=self.device), self._tables_d,
+            self.pool, cfg=self.cfg)
+        preds = torch.argmax(logits, -1).cpu().numpy()  # ONE sync: [B, G+1]
+        arm_elapsed = self._arm_clock() - t_arm
+        self.spec_stats["verify_steps"] += 1
+        accepted_last: Dict[int, int] = {}
+        recorded = 0
+        for i in active:
+            req = self._slots[i]
+            if req is None or req.done:
+                continue
+            d = drafts.get(i, [])
+            a = 0
+            while a < len(d) and d[a] == int(preds[i, a]):
+                a += 1
+            accepted_last[i] = a
+            self.spec_stats["proposed"] += len(d)
+            self.spec_stats["accepted"] += a
+            # pending + a accepted drafts now hold valid cache positions;
+            # the bonus becomes the new pending token (not yet written)
+            self._cur_len[i] += 1 + a
+            before = len(req.out_tokens)
+            for tok in d[:a]:
+                self._record_token(i, req, int(tok))
+                if req.done:
+                    break
+            if not req.done:
+                self._record_token(i, req, int(preds[i, a]))
+            recorded += len(req.out_tokens) - before
+        self._dev = None  # cur/next advanced on host; tables unchanged
+        self.timing["decode_s"] += time.perf_counter() - t0
+        self.timing["decode_tokens"] += recorded
+        n_prop = sum(len(drafts.get(i, [])) for i in active)
+        n_acc = sum(accepted_last.get(i, 0) for i in active)
+        self._spec_streak += 1
+        self._observe_arm(
+            "verify",
+            sum(1 + a for a in accepted_last.values())
+            / max(1, len(accepted_last)),
+            arm_elapsed)
+        w = self._arm_tps.get(("window", displaced_arity))
+        v = self._arm_tps.get("verify")
+        if w is not None and v is not None and v < 0.9 * w:
+            # the window arm is measurably faster on this host and card:
+            # rest regardless of acceptance
+            self._spec_rest()
+            return True
+        if n_prop:
+            self._spec_ema = 0.7 * self._spec_ema + 0.3 * (n_acc / n_prop)
+        if self._spec_ema < 0.35:
+            self._spec_rest()
+            # re-probe just above the floor: ONE more bad verify
+            # re-triggers with the doubled rest (escalation reachable),
+            # while a good one climbs the EMA back toward keeping on
+            self._spec_ema = 0.45
+        elif self._spec_ema > 0.6:
+            self._spec_backoff_len = 8  # healthy again: cheap re-probes
+        return True
 
     # -- internals ----------------------------------------------------------
 

@@ -1,7 +1,6 @@
 """Paged KV cache ops: block-table attention for the LLM engine.
 
-Counterpart of ``ray_tpu/models/paged_generation.py`` (dense pools only;
-the int8 pool and ``paged_verify_step`` come with later slices).
+Counterpart of ``ray_tpu/models/paged_generation.py``.
 
 * The KV cache is a global block pool ``[L, num_blocks, block_size, KVH,
   hd]``; a sequence's cache is a block table of int32 pool indices.
@@ -10,6 +9,10 @@ the int8 pool and ``paged_verify_step`` come with later slices).
   and masked scatter lanes land on.
 * Prefix-cached prefill runs per request (b=1): the cached prefix KV is
   gathered from the pool, only the suffix runs through the layers.
+* ``paged_verify_step`` feeds S tokens per slot in one forward for the
+  engine's speculative decoding.
+* ``kv_dtype="int8"`` stores KV as symmetric per-(token, kv-head) int8
+  codes with bf16 scales, about half the bytes of a bf16 pool.
 
 The JAX programs donate the pool buffer to XLA; here the pool is updated
 in place (``index_put_``), which is what the donation buys there: no
@@ -29,7 +32,7 @@ import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.generation import (_layer_with_cache,
-                                             _stacked_layers,
+                                             _stacked_layers, gumbel_argmax,
                                              sliding_window_mask)
 from ray_tpu_torch.models.llama import LlamaConfig, embed_tokens
 from ray_tpu_torch.models.llama import lm_head as _lm_head
@@ -42,36 +45,90 @@ def init_kv_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
                  kv_dtype=None, device=None) -> Pool:
     """Block pool; block 0 is the reserved scratch block.
 
+    ``kv_dtype="int8"`` stores KV as symmetric per-(token, kv-head) int8
+    with bf16 scales: (hd + 2) bytes per token and head instead of 2·hd,
+    so about twice the sequences fit next to the weights.
+
     Zero-filled on purpose: the scratch block and table-padding slots are
     gathered and then masked with -1e30, and a NaN or inf left there by an
     uninitialised allocation would turn ``0 * garbage`` into a NaN.
     """
-    if kv_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV pool comes with a later slice of the port "
-            "(ROADMAP Queue 1, item 9)")
-    if kv_dtype not in (None, "auto"):
+    if kv_dtype not in (None, "auto", "int8"):
         raise ValueError(f"kv_dtype must be None/'auto'/'int8', got "
                          f"{kv_dtype!r}")
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, hd)
+    if kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=dev),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=dev)}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
+def _quantize_kv(x):
+    """[..., hd] -> (int8 codes, bf16 per-vector scale).
+
+    As the reference computes it, in x's own dtype: the scale is
+    ``max|x| / 127`` clamped at 1e-8; the codes are ``x / scale`` with
+    that unrounded scale, rounded half to even; only then is the scale
+    rounded to bf16 (codes from the bf16 scale would differ).  In bf16 a
+    quotient can round up to 128: XLA's conversion saturates it to 127,
+    torch's wraps it, so the clamp is explicit."""
+    scale = torch.clamp_min(x.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.round(x / scale[..., None]).clamp(-128, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
 def _store_kv(pool: Pool, i: int, blk, off, k, v) -> Pool:
-    """Scatter one layer's new KV at (blk, off), in place.
-    k/v: [n, KVH, hd] (n = batch or suffix length)."""
+    """Scatter one layer's new KV at (blk, off), in place, quantizing if
+    the pool is int8.  k/v: [n, KVH, hd] (n = batch or suffix length) or
+    [b, S, KVH, hd] with blk/off [b, S]."""
+    if "k_scale" in pool:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        pool["k_scale"][i].index_put_((blk, off), ks)
+        pool["v_scale"][i].index_put_((blk, off), vs)
+        k, v = kq, vq
     pool["k"][i].index_put_((blk, off), k)
     pool["v"][i].index_put_((blk, off), v)
     return pool
 
 
-def _gather_kv(pool: Pool, i: int, block_tables):
-    """One layer's ``(k, v)`` for ``[b, MB]`` block tables:
-    ``[b, MB, bs, KVH, hd]`` each, in the pool's dtype."""
-    return pool["k"][i][block_tables], pool["v"][i][block_tables]
+# Block-table CAPACITY (MB*bs, the engine's max_len in tokens) from which
+# the int8 decode path keeps KV quantized through attention (the
+# scale-folded attend) instead of dequantizing in the gather.  Capacity,
+# not the sequences' true lengths, is the knob: a decode step always
+# gathers the full table width, so the cost of dequantizing grows with
+# capacity.  The value is the reference's, so that both packages take
+# the same path at the same capacity; the H100's own crossover is
+# measured by chip_smoke.py (PERF.md).
+INT8_FOLD_MIN_CONTEXT = 384
+
+
+def _gather_kv(pool: Pool, i: int, block_tables, dt):
+    """Gather one layer's KV for ``[b, MB]`` block tables.
+
+    Dense pool -> ``(k, v)`` in dt.  Int8 pool -> dequantized ``(k, v)``
+    in dt below ``INT8_FOLD_MIN_CONTEXT`` tokens of table capacity,
+    still-quantized ``(k_q, ks, v_q, vs)`` from it on (consumed by the
+    scale-folded attend).  Values ``[b, MB, bs, KVH, hd]``, scales
+    ``[b, MB, bs, KVH]``."""
+    k = pool["k"][i][block_tables]
+    v = pool["v"][i][block_tables]
+    if "k_scale" in pool:
+        ks = pool["k_scale"][i][block_tables]
+        vs = pool["v_scale"][i][block_tables]
+        MB, bs = k.shape[1], k.shape[2]
+        if MB * bs >= INT8_FOLD_MIN_CONTEXT:
+            return k, ks, v, vs
+        k = k.to(dt) * ks.to(dt)[..., None]
+        v = v.to(dt) * vs.to(dt)[..., None]
+    return k, v
 
 
 @torch.no_grad()
@@ -107,7 +164,10 @@ def paged_decode_step(params, token, cur_len, block_tables, pool: Pool,
         def merge(k, v, i=i):
             # write new kv first so the token attends to itself
             _store_kv(pool, i, blk, off, k[:, 0], v[:, 0])
-            g = _gather_kv(pool, i, block_tables)
+            # gather this sequence's blocks in logical order; 2-tuple =
+            # dense/dequantized, 4-tuple = int8 codes + scales (folded
+            # attend): _layer_with_cache dispatches on the arity
+            g = _gather_kv(pool, i, block_tables, cfg.dtype)
             return tuple(a.reshape(b, MB * bs, *a.shape[3:]) for a in g)
 
         x, _ = _layer_with_cache(x, lp, merge, cfg=cfg, cos=cos, sin=sin,
@@ -166,6 +226,56 @@ def prefill_suffix(params, tokens, length, start_pos, prefix_k, prefix_v,
 
 
 @torch.no_grad()
+def paged_verify_step(params, tokens, cur_len, block_tables, pool: Pool,
+                      cfg: LlamaConfig):
+    """Speculative-decoding verify against block-table caches: feed S
+    tokens per slot in ONE forward (``tokens[:, 0]`` is the pending
+    last-accepted token, ``1..S-1`` the draft proposals).
+
+    ``logits[:, j]`` predicts the token at position ``cur_len+j+1``, so
+    greedy acceptance compares ``argmax(logits[:, j])`` with draft token
+    ``j+1``: the paged counterpart of the dense ``verify_step``.  KV for
+    all S positions is written at ``cur_len..cur_len+S-1`` through the
+    block tables (pad / overflow lanes clamp to the table's last
+    position); slots past the accepted prefix hold draft-conditioned KV
+    but stay invisible (masks are ``<= position``) and are overwritten
+    when those positions are genuinely reached.  Returns ``(logits [b, S,
+    vocab], pool)``.
+    """
+    b, S = tokens.shape
+    MB = block_tables.shape[1]
+    bs = pool["k"].shape[2]
+    ML = MB * bs
+    dev = tokens.device
+    cos, sin = rope_frequencies(cfg.resolved_head_dim, ML, cfg.rope_theta,
+                                device=dev)
+    positions = cur_len[:, None] + torch.arange(S, device=dev)[None, :]
+    safe_pos = torch.clamp(positions, max=ML - 1)
+    x = embed_tokens(params, tokens, cfg)
+    idx = torch.arange(ML, device=dev)
+    # query at global position p sees pool slots <= p (its own included);
+    # earlier same-chunk tokens are visible because each layer stores the
+    # whole chunk's KV before gathering
+    mask = idx[None, None, :] <= safe_pos[:, :, None]
+    if cfg.sliding_window is not None:
+        mask &= sliding_window_mask(safe_pos[:, :, None],
+                                    idx[None, None, :], cfg.sliding_window)
+    rows = torch.arange(b, device=dev)[:, None]
+    blk = block_tables[rows, safe_pos // bs]  # [b, S]
+    off = safe_pos % bs
+
+    for i, lp in _stacked_layers(params):
+        def merge(k, v, i=i):
+            _store_kv(pool, i, blk, off, k, v)  # k/v [b, S, KVH, hd]
+            g = _gather_kv(pool, i, block_tables, cfg.dtype)
+            return tuple(a.reshape(b, ML, *a.shape[3:]) for a in g)
+
+        x, _ = _layer_with_cache(x, lp, merge, cfg=cfg, cos=cos, sin=sin,
+                                 mask=mask, positions=safe_pos)
+    return _lm_head(params, cfg, x), pool
+
+
+@torch.no_grad()
 def paged_decode_sample(params, token, cur_len, block_tables, pool: Pool,
                         generator: torch.Generator, temps,
                         cfg: LlamaConfig):
@@ -195,17 +305,23 @@ def sample_token_batch(logits, generator: torch.Generator, temps):
     decode window and batched admission first-tokens."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     t = torch.clamp_min(temps, 1e-6)[:, None]
-    noise = torch.empty_like(logits, dtype=torch.float32).exponential_(
-        generator=generator)
-    sampled = torch.argmax(logits / t - torch.log(noise),
-                           dim=-1).to(torch.int32)
+    sampled = gumbel_argmax(logits / t, generator)
     return torch.where(temps <= 0.0, greedy, sampled)
 
 
 def gather_prefix(pool: Pool, blocks):
-    """Gather ``[L, P*bs, KVH, hd]`` prefix KV for a block list ``[P]``."""
+    """Gather ``[L, P*bs, KVH, hd]`` prefix KV for a block list ``[P]``,
+    dequantized to bf16 when the pool is int8 (bf16 whatever
+    ``cfg.dtype`` is, as in the reference)."""
     L, _, bs = pool["k"].shape[:3]
     P = blocks.shape[0]
-    k = pool["k"][:, blocks].reshape(L, P * bs, *pool["k"].shape[3:])
-    v = pool["v"][:, blocks].reshape(L, P * bs, *pool["v"].shape[3:])
+    k = pool["k"][:, blocks]
+    v = pool["v"][:, blocks]
+    if "k_scale" in pool:
+        k = k.to(torch.bfloat16) * pool["k_scale"][:, blocks].to(
+            torch.bfloat16)[..., None]
+        v = v.to(torch.bfloat16) * pool["v_scale"][:, blocks].to(
+            torch.bfloat16)[..., None]
+    k = k.reshape(L, P * bs, *pool["k"].shape[3:])
+    v = v.reshape(L, P * bs, *pool["v"].shape[3:])
     return k, v

@@ -214,9 +214,7 @@ def test_engine_sampling_is_seeded(models):
     assert toks[0] != toks[2]
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"spec_tokens": 2}, {"prefill_chunk": 8}, {"kv_cache_dtype": "int8"},
-    {"mesh": object()}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
 def test_unported_engine_options_raise(models, kwargs):
     jcfg, tcfg, tree, params = models
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -350,9 +350,9 @@ def test_remote_copy_two_streams_on_one_pair():
     assert all(rc._REG.pairs[key].epoch >= hops for key in keys)
 
 
-def _edge_counts(stage, sms):
-    """``chip_smoke.py``'s ``k4_edge_counts``: byte counts around every
-    edge of K4's design, one table for the script and the tests."""
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its tables and checks serve the
+    script and the tests alike."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.dirname(
@@ -360,7 +360,13 @@ def _edge_counts(stage, sms):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.k4_edge_counts(stage, sms)
+    return smoke
+
+
+def _edge_counts(stage, sms):
+    """``chip_smoke.py``'s ``k4_edge_counts``: byte counts around every
+    edge of K4's design."""
+    return _chip_smoke().k4_edge_counts(stage, sms)
 
 
 def _cuda_kernels(fn):
@@ -490,3 +496,22 @@ def test_channel_read_value_lands_on_card():
     finally:
         rd.detach()
         ch.destroy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("check", ["spec_engine", "chunked_prefill",
+                                   "int8_folded", "generate_speculative"])
+def test_serving_options_exact_in_fp32_on_card(check):
+    """``chip_smoke.py``'s ``small_reference`` checks of the serving
+    options on the small fp32 model, each raising on a mismatch: the
+    speculative engine's tokens equal the plain engine's, chunked prefill
+    equals unchunked, the int8 folded attend is within 2e-2 of eager
+    dequantization, and ``generate(speculative=4)`` equals greedy
+    ``generate``.  (bf16 is not token-exact between GEMM shapes, so these
+    hold in fp32.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the check runs the port's serving "
+                    "paths on the card")
+    smoke = _chip_smoke()
+    cfg, params = smoke.small_model("cuda")
+    smoke.SERVING_OPTION_CHECKS[check](cfg, params, "cuda")
