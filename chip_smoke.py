@@ -40,8 +40,10 @@ Phases, each printing one JSON line:
    greedy ``LLMEngine`` output against full-recompute argmax, the serving
    options held exact in fp32 (the speculative engine's tokens against
    the plain engine's, chunked prefill against unchunked, the int8
-   folded attend against eager dequantization within 2e-2, and dense
-   ``generate(speculative=4)`` against greedy ``generate``), and three
+   folded attend against eager dequantization within 2e-2, dense
+   ``generate(speculative=4)`` against greedy ``generate``, and the
+   disaggregated hand-off over a device-tier edge against the colocated
+   engine, each landed tensor bit-equal to its export), and three
    train steps (K1/K2/K3 under ``save_attn``) against the same steps
    through the plain versions on the CPU.
 4. ``channel``: a device-tier edge between two processes.  This process
@@ -72,7 +74,22 @@ Phases, each printing one JSON line:
    not token-exact between GEMM shapes), decode tokens/s, the time per
    chunk and to first token, and one decode step's device time through
    each int8 path at two table capacities.
-9. ``train``: the 7B serving weights are freed, then ``make_llama_trainer``
+9. ``disagg``: the disaggregated hand-off on the same weights: a
+   prefill engine (``prefill_chunk=64``) answers the five serve prompts
+   prefill-only, each export ships over one device-tier edge
+   (``KVBlockShipper`` -> ``KVLandingStrip``, the peer probed as another
+   process, frames landing on the card through the page-locked segment)
+   and a decode engine adopts it and decodes; then one request between
+   two int8-pool engines (values and scales shipped).  The tier must be
+   the device tier with no degraded frame, every landed tensor must equal
+   its export bit for bit, nothing may re-prefill, every export must be
+   adopted and both engines' block accounting must hold.  It reports
+   per request the time to first token on the prefill side, export,
+   ship, land and adopt times and bytes, the decode tokens/s (and the
+   decode engine's rate with and without an idle landing thread
+   polling, in turns) and the agreement with the ``serve`` phase's
+   colocated tokens.
+10. ``train``: the 7B serving weights are freed, then ``make_llama_trainer``
    at Llama-2-7B width cut to 16 layers (fp32 params and AdamW state,
    bf16 activations, ``save_attn``) takes two warm-up and three timed
    steps on b=1, s=2048 random tokens; K1, K2 and K3 must each launch
@@ -113,6 +130,12 @@ LOOP_NEW_TOKENS = 64
 PREFILL_CHUNK = 256
 LONG_PROMPT = 900
 CROSSOVER_LENS = (176, 512)
+# disagg: the prefill engine's chunk budget (a long prompt no longer
+# stalls the other admissions; the reference's prefill pool defaults to
+# 4 blocks, 64 tokens at block 16)
+DISAGG_CHUNK = 64
+# the decode-rate A/B with an idle landing strip: new tokens per run
+POLL_TOKENS = 16
 TRAIN_LAYERS = 16
 TRAIN_STEPS = 3
 DEPTH_CUT = ("32 → 16 layers: fp32 params + AdamW state of the full depth "
@@ -1252,10 +1275,244 @@ def check_generate_speculative(cfg, params, device="cuda"):
     return {"tokens": sum(map(len, spec))}
 
 
+def handoff_edge(channel_bytes, device="cuda"):
+    """One ``KVBlockShipper`` -> ``KVLandingStrip`` edge in this process
+    whose peer is probed as another process (another pid: the tier that
+    two CUDA processes of one node negotiate), landing frames on
+    ``device``.  The engine is not thread-safe, so the strip's thread only
+    queues each landed handoff and the thread that steps the decode
+    engine adopts it.  A CUDA reader's mapping of the segment is
+    page-locked here, before any request, so that no landing pays for
+    it.  Each frame's time on the edge is split into spans, by
+    wrapping the functions the transports call until ``close_edge``:
+    ``serialize`` (the writer's pickling with its D2H of every tensor),
+    ``segment_write`` (the memcpy into the segment) and ``land`` (the
+    reader's decoding with its H2D copies, synchronised).  Returns a
+    dict: shipper, strip, reader, inbox, spans, pin_s."""
+    import queue
+
+    from ray_tpu_torch._private import serialization
+    from ray_tpu_torch.experimental.channel.transport import (
+        attach_edge_transport, local_endpoint_info)
+    from ray_tpu_torch.llm import KVBlockShipper, KVLandingStrip
+
+    spans = {"serialize": [], "segment_write": [], "land": []}
+
+    def timed(fn, span):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spans[span].append(time.perf_counter() - t0)
+        return run
+
+    inbox = queue.Queue()
+    edge = {"inbox": inbox, "pin_s": 0.0, "spans": spans,
+            "unwrap": (serialization.serialize_parts,
+                       serialization.write_parts),
+            "strip": KVLandingStrip(lambda h: inbox.put(h) is None,
+                                    poll_s=0.05),
+            "shipper": KVBlockShipper("prefill0", channel_bytes=channel_bytes,
+                                      ship_timeout_s=60.0)}
+
+    def register(tr):
+        rd = attach_edge_transport(tr, 0, device=device)
+        if rd.device.type == "cuda":
+            t0 = time.perf_counter()
+            rd.channel.pin_for_cuda()
+            edge["pin_s"] = time.perf_counter() - t0
+        rd._decode = timed(rd._decode, "land")
+        edge["reader"] = rd
+        edge["strip"].attach(rd, "prefill0")
+
+    peer = dataclasses.replace(local_endpoint_info(), pid=999999)
+    edge["shipper"].connect("decode0", peer, register)
+    serialization.serialize_parts = timed(serialization.serialize_parts,
+                                          "serialize")
+    serialization.write_parts = timed(serialization.write_parts,
+                                      "segment_write")
+    return edge
+
+
+def close_edge(edge):
+    """Stop the landing thread, unpin and unmap the reader's mapping and
+    destroy the segment; returns the reader's and writer's stats.  Raises
+    if the segment outlives the edge."""
+    from ray_tpu_torch._private import serialization
+    from ray_tpu_torch._private.shm import open_shm
+
+    serialization.serialize_parts, serialization.write_parts = \
+        edge["unwrap"]
+    name = edge["reader"].name
+    writer = edge["shipper"].stats().get("decode0", {})
+    edge["strip"].stop()
+    edge["reader"].channel.detach()
+    edge["shipper"].close()
+    try:
+        open_shm(name=name).close()
+    except FileNotFoundError:
+        return {"writer": writer, "reader": dict(edge["reader"].stats),
+                "strip": edge["strip"].stats()}
+    raise AssertionError(f"the hand-off segment {name} was not destroyed")
+
+
+def disaggregate(pre, dec, prompts, max_tokens, edge):
+    """Serve ``prompts`` disaggregated (greedy): prefill-only requests on
+    ``pre`` (each request's time to first token stamped from submission),
+    then per request ``export_kv``, the ship over ``edge``, its landing and
+    ``adopt_prefilled`` by ``dec``, then ``dec`` decodes them all.  Each
+    landed tensor must equal its export bit for bit in its first
+    ``n_blocks`` (and the adopted pool blocks the landed ones), the tier
+    must be the device tier, nothing may re-prefill, every export must be
+    adopted and both engines' block accounting must hold.  Returns the
+    tokens and one record per request."""
+    import torch
+
+    from ray_tpu_torch.experimental.channel.transport import TIER_DEVICE
+    from ray_tpu_torch.llm import SamplingParams
+
+    def sync():
+        if pre.device.type == "cuda":
+            torch.cuda.synchronize(pre.device)
+
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens)
+    first = {}
+    record = pre._record_token
+
+    def stamped(i, req, tok):
+        first.setdefault(req.request_id, time.perf_counter() - t_submit)
+        record(i, req, tok)
+
+    pre._record_token = stamped
+    t_submit = time.perf_counter()
+    rids = [pre.submit(p, sp, prefill_only=True) for p in prompts]
+    while pre.has_unfinished():
+        pre.step()
+    del pre._record_token
+    rows, dids = [], []
+    for rid in rids:
+        sync()
+        t0 = time.perf_counter()
+        export = pre.export_kv(rid)
+        sync()
+        t1 = time.perf_counter()
+        sent = edge["shipper"].ship("decode0", export)
+        t2 = time.perf_counter()
+        landed = edge["inbox"].get(timeout=60)
+        t_got = time.perf_counter()
+        did = dec.adopt_prefilled(landed)
+        sync()
+        t3 = time.perf_counter()
+        if did is None:
+            raise AssertionError(f"request {rid}: the decode engine could "
+                                 f"not adopt its hand-off")
+        n = export["n_blocks"]
+        blocks = dec._adopt_queue[-1].blocks
+        equal = all(
+            torch.equal(landed["kv"][k][:, :n], t[:, :n].to(
+                landed["kv"][k].device))
+            and torch.equal(dec.pool[k][:, blocks], landed["kv"][k][:, :n]
+                            .to(dec.pool[k].device))
+            for k, t in export["kv"].items())
+        if not equal or set(landed["kv"]) != set(export["kv"]) \
+                or sent["tier"] != TIER_DEVICE:
+            raise AssertionError(f"request {rid}: landed equal to export "
+                                 f"{equal}, keys {sorted(landed['kv'])}, "
+                                 f"tier {sent['tier']}")
+        span = {k: 1e3 * v[-1] for k, v in edge["spans"].items()}
+        d2h_s = _wall(lambda: [t.cpu() for t in export["kv"].values()])
+        rows.append({"prompt_tokens": len(export["prompt_tokens"]),
+                     "n_blocks": n, "shipped_blocks":
+                     int(export["kv"]["k"].shape[1]),
+                     "tensors": sorted(export["kv"]),
+                     "ttft_s": first[rid], "export_ms": 1e3 * (t1 - t0),
+                     "ship_ms": 1e3 * (t2 - t1),
+                     "serialize_ms": span["serialize"],
+                     "segment_write_ms": span["segment_write"],
+                     "d2h_alone_ms": 1e3 * d2h_s,
+                     "land_ms": span["land"],
+                     "adopt_ms": 1e3 * (t3 - t_got),
+                     "handoff_ms": 1e3 * (t3 - t0),
+                     "bytes": sent["bytes"], "tier": sent["tier"],
+                     "landed_on": str(landed["kv"]["k"].device)})
+        dids.append(did)
+        del export, landed
+    outs = {}
+    while dec.has_unfinished():
+        for o in dec.step():
+            outs[o.request_id] = o
+    for eng in (pre, dec):
+        eng.blocks.assert_integrity()
+    tokens = [outs[d].token_ids for d in dids]
+    faults = [f"request {d}: error {outs[d].error}, {len(outs[d].token_ids)} "
+              f"tokens" for d in dids
+              if outs[d].error is not None or len(outs[d].token_ids)
+              != max_tokens or not all(0 <= t < pre.cfg.vocab_size
+                                       for t in outs[d].token_ids)]
+    if dec.timing["prefill_tokens"]:
+        faults.append(f"the decode engine prefilled "
+                      f"{dec.timing['prefill_tokens']} tokens")
+    if pre.handoff_stats["exported"] != dec.handoff_stats["adopted"] \
+            or dec.handoff_stats["adopt_failures"]:
+        faults.append(f"exported {pre.handoff_stats}, adopted "
+                      f"{dec.handoff_stats}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return tokens, rows
+
+
+def edge_faults(stats, ships):
+    """What makes a hand-off edge's run fail: another tier than the device
+    tier, a degraded frame on either end, a frame that was no device
+    frame, or a landing that did not reach the decode engine."""
+    from ray_tpu_torch.experimental.channel.transport import TIER_DEVICE
+
+    w, r, strip = stats["writer"], stats["reader"], stats["strip"]
+    faults = []
+    if w.get("tier") != TIER_DEVICE or r["degraded"] or w.get("degraded"):
+        faults.append(f"tier {w.get('tier')}, degraded writer "
+                      f"{w.get('degraded')} reader {r['degraded']}")
+    if w.get("device_frames") != ships or strip["landed"] != ships \
+            or strip["adopt_failed"] or strip["decode_errors"]:
+        faults.append(f"{ships} ships: writer {w}, strip {strip}")
+    return faults
+
+
+def check_disagg_handoff(cfg, params, device="cuda"):
+    """The disaggregated hand-off over a device-tier edge: prefill-only
+    requests on a prefill engine with ``prefill_chunk=32``, each export
+    shipped, landed bit-equal and adopted by a decode engine: the same
+    greedy tokens as the colocated engine, with no degraded frame."""
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.llm.kv_transfer import handoff_channel_bytes
+
+    prompts = [[(7 * k + 3) % cfg.vocab_size for k in range(70)], [5, 9, 2],
+               [(11 * k + 1) % cfg.vocab_size for k in range(40)]]
+    kw = dict(batch_slots=2, max_len=128, block_size=8, device=device)
+    want = _greedy_tokens(LLMEngine(cfg, params, **kw), prompts, 12)
+    pre = LLMEngine(cfg, params, prefill_chunk=32, **kw)
+    dec = LLMEngine(cfg, params, **kw)
+    edge = handoff_edge(handoff_channel_bytes(pre), device)
+    try:
+        got, rows = disaggregate(pre, dec, prompts, 12, edge)
+    finally:
+        stats = close_edge(edge)
+    faults = edge_faults(stats, len(prompts))
+    if got != want:
+        faults.append(f"disaggregated {got} != colocated {want}")
+    if faults:
+        raise AssertionError("disagg: " + "; ".join(faults))
+    return {"requests": len(rows), "tier": stats["writer"]["tier"],
+            "chunks": pre.prefill_stats["chunks"],
+            "n_blocks": [r["n_blocks"] for r in rows]}
+
+
 SERVING_OPTION_CHECKS = {"spec_engine": check_spec_engine,
                          "chunked_prefill": check_chunked_prefill,
                          "int8_folded": check_int8_folded,
-                         "generate_speculative": check_generate_speculative}
+                         "generate_speculative": check_generate_speculative,
+                         "disagg_handoff": check_disagg_handoff}
 
 
 def small_train_reference(device="cuda", steps=3):
@@ -1430,6 +1687,7 @@ def phase_serve(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
             "decode_tokens_per_s": t["decode_tokens"] / t["decode_s"],
             "k1_launches": launches, "prefix_cache": stats["prefix_cache"],
             "first_tokens": [o.token_ids[:4] for o in outs],
+            "token_ids": [o.token_ids for o in outs],
             "decode_profile": profile_decode_window(eng, cfg.vocab_size)}
 
 
@@ -1679,6 +1937,111 @@ def phase_serve_options(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
             "part_s": part_s}
 
 
+def phase_disagg(cfg, params, colocated, device="cuda",
+                 max_len=SERVE_MAX_LEN):
+    """The disaggregated hand-off on the 7B bf16 weights: a prefill engine
+    (``prefill_chunk=DISAGG_CHUNK``) and a decode engine, sharing the
+    weights, joined by one device-tier edge sized by
+    ``handoff_channel_bytes``; the five serve prompts (greedy,
+    ``SERVE_NEW_TOKENS`` each), then one request between two int8-pool
+    engines over the same edge (values and scales shipped).  Reports each
+    request's time to first token on the prefill side, export, ship, land
+    and adopt times and bytes, the decode engine's tokens/s (and, in
+    turns, with and without an idle landing thread polling), and the
+    agreement of the tokens with the colocated ``serve`` phase's
+    (``colocated``: bf16 is not token-exact between batch shapes)."""
+    import torch
+
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.llm.kv_transfer import handoff_channel_bytes
+    from ray_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+
+    kw = dict(batch_slots=SERVE_SLOTS, max_len=max_len,
+              block_size=SERVE_BLOCK, seed=0, device=device)
+    prompts = serve_prompts(cfg.vocab_size)
+    flash_attention_fwd.launches = 0
+    pre = LLMEngine(cfg, params, prefill_chunk=DISAGG_CHUNK, **kw)
+    dec = LLMEngine(cfg, params, **kw)
+    segment = handoff_channel_bytes(pre)
+    edge = handoff_edge(segment, device)
+    try:
+        t0 = time.perf_counter()
+        got, rows = disaggregate(pre, dec, prompts, SERVE_NEW_TOKENS, edge)
+        wall_s = time.perf_counter() - t0
+        pre8 = LLMEngine(cfg, params, prefill_chunk=DISAGG_CHUNK,
+                         kv_cache_dtype="int8", **kw)
+        dec8 = LLMEngine(cfg, params, kv_cache_dtype="int8", **kw)
+        got8, rows8 = disaggregate(pre8, dec8, prompts[:1],
+                                   SERVE_NEW_TOKENS, edge)
+    finally:
+        stats = close_edge(edge)
+    t = dict(dec.timing)
+    poll = landing_poll_cost(dec, prompts[:SERVE_SLOTS], device)
+    launches = flash_attention_fwd.launches
+    faults = edge_faults(stats, len(prompts) + 1)
+    if rows8[0]["tensors"] != ["k", "k_scale", "v", "v_scale"]:
+        faults.append(f"the int8 hand-off shipped {rows8[0]['tensors']}")
+    if faults:
+        raise AssertionError("disagg: " + "; ".join(faults))
+    moved = sum(r["bytes"] for r in rows)
+    handoff_s = sum(r["handoff_ms"] for r in rows) / 1e3
+    return {"requests": len(rows), "prompt_tokens": [len(p) for p in prompts],
+            "prefill_chunk": DISAGG_CHUNK, "segment_bytes": segment,
+            "pin_ms": 1e3 * edge["pin_s"],
+            "tier": stats["writer"]["tier"], "handoffs": rows,
+            "handoff_gb_per_s": moved / handoff_s / 1e9,
+            "prefill_chunks": pre.prefill_stats["chunks"],
+            "prefill_tokens_per_s": pre.timing["prefill_tokens"]
+            / pre.timing["prefill_s"],
+            "decode_tokens": t["decode_tokens"],
+            "decode_tokens_per_s": t["decode_tokens"] / t["decode_s"],
+            "decode_prefill_tokens": t["prefill_tokens"],
+            "decode_tokens_per_s_by_landing_thread": poll,
+            "exported": pre.handoff_stats["exported"]
+            + pre8.handoff_stats["exported"],
+            "adopted": dec.handoff_stats["adopted"]
+            + dec8.handoff_stats["adopted"],
+            "wall_s": wall_s, "k1_launches": launches,
+            "agreement_with_colocated": agreement(cfg, params, prompts, got,
+                                                  colocated),
+            "int8": {**rows8[0], "first_tokens": got8[0][:4],
+                     "agreement_with_colocated": agreement(
+                         cfg, params, prompts[:1], got8, colocated[:1])},
+            "writer_stats": stats["writer"], "reader_stats": stats["reader"],
+            "strip_stats": stats["strip"]}
+
+
+def landing_poll_cost(eng, prompts, device="cuda"):
+    """Decode tokens/s of ``eng`` on ``prompts`` (greedy, ``POLL_TOKENS``
+    new) without and with an idle ``KVLandingStrip`` polling an empty edge
+    in this process, in turns (none, polling, polling, none): a decode
+    engine's landing thread keeps polling while the engine decodes, and
+    its bounded polls take the interpreter lock from a host-bound decode
+    loop."""
+    from ray_tpu_torch.experimental.channel.transport import (
+        TIER_DEVICE, attach_edge_transport, make_edge_transport)
+    from ray_tpu_torch.llm import KVLandingStrip
+
+    rates = {"none": [], "polling": []}
+    for mode in ("none", "polling", "polling", "none"):
+        before = dict(eng.timing)
+        tr = make_edge_transport(tier=TIER_DEVICE, buffer_size=1 << 16)
+        rd = attach_edge_transport(tr, 0, device=device)
+        strip = KVLandingStrip(lambda h: True, poll_s=0.05)
+        try:
+            if mode == "polling":
+                strip.attach(rd)
+            run_timed(eng, prompts, POLL_TOKENS)
+        finally:
+            strip.stop()
+            rd.channel.detach()
+            tr.destroy()
+        rates[mode].append(
+            (eng.timing["decode_tokens"] - before["decode_tokens"])
+            / (eng.timing["decode_s"] - before["decode_s"]))
+    return rates
+
+
 def int8_crossover(cfg, params, device="cuda"):
     """Device time (torch.profiler, all kernels) of one ``SERVE_SLOTS``-slot
     ``paged_decode_step`` with full block tables, at each capacity of
@@ -1892,6 +2255,7 @@ def main() -> int:
         raise AssertionError(f"K1 launched {fwd['k1_launches']} times in "
                              f"the forward, expected {cfg.num_layers}")
     serve = phase_serve(cfg, params)
+    colocated = serve.pop("token_ids")
     emit({"phase": "serve", "model": "llama2_7b", "slots": SERVE_SLOTS,
           "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, **serve,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1901,6 +2265,12 @@ def main() -> int:
           "layers": cfg.num_layers, "depth_cut": False,
           "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK,
           "spec_tokens": SPEC_TOKENS, **options,
+          "phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    disagg = phase_disagg(cfg, params, colocated)
+    emit({"phase": "disagg", "model": "llama2_7b", "layers": cfg.num_layers,
+          "depth_cut": False, "max_len": SERVE_MAX_LEN,
+          "block_size": SERVE_BLOCK, "slots": SERVE_SLOTS, **disagg,
           "phase_s": time.perf_counter() - t0})
 
     del params
@@ -1936,6 +2306,7 @@ def main() -> int:
          "launches": train["launches"]["K1"],
          "launches_by_path": {"forward": fwd["k1_launches"],
                               "serve": serve["k1_launches"],
+                              "disagg": disagg["k1_launches"],
                               "train": train["launches"]["K1"]},
          "max_abs_err": row1["max_abs_err"], "ms": row1["ms"],
          "plain_ms": row1["plain_ms"], "bound_ms": row1["bound_ms"],

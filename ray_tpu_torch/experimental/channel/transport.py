@@ -258,6 +258,10 @@ class EdgeTransport:
     def name(self) -> str:
         return self.channel.name
 
+    def set_reader_slot(self, slot: int) -> "EdgeTransport":
+        self.channel.set_reader_slot(slot)
+        return self
+
     def destroy(self) -> None:
         self.channel.destroy()
 

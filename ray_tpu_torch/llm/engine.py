@@ -20,14 +20,20 @@ Counterpart of ``ray_tpu/llm/engine.py`` with the same structure:
   long prompts prefill in block-aligned chunks that resume through
   ordinary prefix hits.
 * **The int8 KV pool** (``kv_cache_dtype="int8"``).
+* **The disaggregated prefill/decode hand-off**: a prefill engine runs
+  ``submit(..., prefill_only=True)`` requests, which retire right after
+  their first sampled token holding their blocks; ``export_kv`` gathers
+  those blocks into owned tensors, ``llm/kv_transfer.py`` ships them over
+  the channel plane, and a decode engine's ``adopt_prefilled`` grafts
+  them (with their prefix-cache chain keys) into its own pool and
+  resumes decoding with no re-prefill.
 
 PyTorch runs eagerly, so there is no jit; prefill lengths stay bucketed
 (``_bucket``) so padding is identical to the reference.  The decode loop
 is a Python loop of eager ops.
 
-Not in this slice (each raises ``NotImplementedError`` naming where it
-comes): mesh sharding and the disaggregated-serving handoff
-(``prefill_only``, ``export_kv``, ``adopt_prefilled``).
+Not in this slice (raises ``NotImplementedError`` naming where it
+comes): mesh sharding.
 """
 
 from __future__ import annotations
@@ -109,6 +115,10 @@ class Request:
     # max_tokens budget survive any number of preemptions
     n_prompt: int = -1
     error: Optional[str] = None
+    # disaggregated serving: a prefill-only request retires right after
+    # its first sampled token, holding its blocks for export (the KV
+    # handoff to a decode engine) instead of releasing them
+    prefill_only: bool = False
 
     def __post_init__(self):
         if self.n_prompt < 0:
@@ -149,7 +159,8 @@ class _BlockManager:
         self.lru: "collections.OrderedDict[Any, int]" = \
             collections.OrderedDict()
         self.stats = {"prefix_hits": 0, "prefix_blocks_reused": 0,
-                      "evictions": 0, "preemptions": 0}
+                      "evictions": 0, "preemptions": 0,
+                      "adopted_blocks": 0}
 
     def available(self) -> int:
         return len(self.free) + len(self.lru)
@@ -198,6 +209,38 @@ class _BlockManager:
             self.lru[key] = bid  # retain contents for future prefix hits
         else:
             self.free.append(bid)
+
+    def adopt(self, keys: List[Any]) -> Optional[List[int]]:
+        """Allocate one block per entry of ``keys`` for KV grafted from a
+        remote pool (the disaggregated prefill handoff) and register the
+        non-None chain keys, so the shipped prefix serves future local
+        prefix hits too.  All-or-nothing: on pool pressure every block
+        allocated so far is UNPUBLISHED and freed (a plain ``release``
+        would LRU-retain registered keys pointing at never-written
+        blocks, and a later prefix hit would read that garbage KV) and
+        None is returned."""
+        bids: List[int] = []
+        for key in keys:
+            bid = self.alloc()
+            if bid is None:
+                self.unpublish_free(bids)
+                return None
+            if key is not None:
+                self.register(bid, key)
+            bids.append(bid)
+        self.stats["adopted_blocks"] += len(bids)
+        return bids
+
+    def unpublish_free(self, bids: List[int]) -> None:
+        """Roll back adopted blocks whose KV was never (fully) written:
+        unpublish any registered chain keys and return the blocks to the
+        free list."""
+        for b in bids:
+            k = self.key_of.pop(b, None)
+            if k is not None and self.by_key.get(k) == b:
+                del self.by_key[k]
+            self.refs.pop(b, None)
+            self.free.append(b)
 
     def assert_integrity(self) -> None:
         """Audit invariant: every non-scratch block is in exactly one of
@@ -299,6 +342,13 @@ class LLMEngine:
         self._ids = itertools.count()
         self._queue: "collections.deque[Request]" = collections.deque()
         self._failed: List[Request] = []  # per-request admission failures
+        # disaggregated serving: finished prefill-only requests holding
+        # their blocks for export, and adopted (already-prefilled)
+        # requests waiting for a free decode slot
+        self._exports: Dict[int, Request] = {}
+        self._adopt_queue: "collections.deque[Request]" = collections.deque()
+        self.handoff_stats = {"exported": 0, "adopted": 0,
+                              "adopt_failures": 0}
         self._slots: List[Optional[Request]] = [None] * self.B
         self._cur_len = np.zeros(self.B, np.int32)
         self._next_token = np.zeros(self.B, np.int32)
@@ -321,14 +371,12 @@ class LLMEngine:
 
     def submit(self, prompt, sampling: Optional[SamplingParams] = None, *,
                prefill_only: bool = False) -> int:
-        if prefill_only:
-            raise _later("prefill-only requests (disaggregated serving)",
-                         "the disaggregated-serving slice")
         if isinstance(prompt, str):
             prompt = self.tokenizer.encode(prompt)
         sampling = sampling or SamplingParams(
             stop_token_id=getattr(self.tokenizer, "eos_id", None))
-        req = Request(next(self._ids), list(prompt), sampling)
+        req = Request(next(self._ids), list(prompt), sampling,
+                      prefill_only=prefill_only)
         if len(req.prompt_tokens) >= self.max_len:
             raise ValueError(
                 f"prompt of {len(req.prompt_tokens)} tokens >= engine "
@@ -341,7 +389,9 @@ class LLMEngine:
         is removed outright, releasing any chunk-prefill block pins it
         accumulated; an active one is marked ``done`` so the next
         ``step()`` retires it through the ordinary path (slot cleared,
-        blocks released).  Returns ``True`` when the request was found."""
+        blocks released).  An adopted request still waiting for a slot
+        and a held export release their blocks at once.  Returns ``True``
+        when the request was found."""
         for qi, req in enumerate(self._queue):
             if req.request_id == request_id:
                 del self._queue[qi]
@@ -349,23 +399,26 @@ class LLMEngine:
                     self.blocks.release(bid)
                 req.chunk_blocks = []
                 return True
+        for qi, req in enumerate(self._adopt_queue):
+            if req.request_id == request_id:
+                del self._adopt_queue[qi]
+                for bid in req.blocks:
+                    self.blocks.release(bid)
+                req.blocks = []
+                return True
+        if self.release_export(request_id):
+            return True
         for req in self._slots:
             if req is not None and req.request_id == request_id:
                 req.done = True
+                req.prefill_only = False  # abandoned: nothing to export
                 return True
         return False
 
     def has_unfinished(self) -> bool:
         return (bool(self._queue) or bool(self._failed)
+                or bool(self._adopt_queue)
                 or any(s is not None for s in self._slots))
-
-    def export_kv(self, request_id: int):
-        raise _later("export_kv (the KV handoff)",
-                     "the disaggregated-serving slice")
-
-    def adopt_prefilled(self, handoff, sampling=None):
-        raise _later("adopt_prefilled (the KV handoff)",
-                     "the disaggregated-serving slice")
 
     # -- continuous-batching step ------------------------------------------
 
@@ -373,6 +426,23 @@ class LLMEngine:
         """Admit queued requests into free slots (prefix-cached prefill),
         run one verify pass or decode window for all active slots, retire
         finished."""
+        # 0. place adopted (already-prefilled, KV grafted) requests into
+        # free slots: no prefill at all, the shipped blocks ARE the cache
+        # and the first token came with the handoff
+        for i in range(self.B):
+            if not self._adopt_queue:
+                break
+            if self._slots[i] is not None:
+                continue
+            req = self._adopt_queue.popleft()
+            self._slots[i] = req
+            self._cur_len[i] = len(req.prompt_tokens)
+            self._next_token[i] = req.out_tokens[-1] if req.out_tokens \
+                else 0
+            self._tables[i] = 0
+            self._tables[i, :len(req.blocks)] = req.blocks
+            self._dev_dirty = True
+
         # 1. admit: prefills run back to back; the first tokens of ALL
         # admissions are sampled and fetched in ONE host sync
         t0 = time.perf_counter()
@@ -470,9 +540,14 @@ class LLMEngine:
                 out.append(GenerationOutput(
                     req.request_id, req.prompt_tokens[:req.n_prompt], toks,
                     text=self.tokenizer.decode(toks)))
-                for bid in req.blocks:
-                    self.blocks.release(bid)
-                req.blocks = []
+                if req.prefill_only and req.blocks:
+                    # blocks stay held for export_kv (the KV handoff);
+                    # release_export is the abandonment path
+                    self._exports[req.request_id] = req
+                else:
+                    for bid in req.blocks:
+                        self.blocks.release(bid)
+                    req.blocks = []
                 self._slots[i] = None
                 self._tables[i] = 0
                 self._dev_dirty = True
@@ -487,16 +562,162 @@ class LLMEngine:
                 results[out.request_id] = out
         return [results[i] for i in ids]
 
+    # -- disaggregated prefill/decode handoff --------------------------------
+    #
+    # A prefill engine runs ``submit(..., prefill_only=True)`` requests: it
+    # prefills the prompt, samples the FIRST token, and parks the finished
+    # request in ``_exports`` with its block refs held.  ``export_kv``
+    # gathers those block-aligned pool slices into fresh tensors (never
+    # views of the live pool) and releases the refs; the payload ships to
+    # a decode engine whose ``adopt_prefilled`` grafts the blocks and
+    # their prefix-cache chain keys into its own pool and resumes the
+    # decode loop, no re-prefill.
+
+    def export_kv(self, request_id: int) -> Dict[str, Any]:
+        """Pop a finished prefill-only request and gather its KV blocks.
+
+        Returns the self-contained handoff payload: prompt/out tokens,
+        sampling params, and ``kv``, a dict of ``[L, P, bs, ...]`` tensors
+        on this engine's device (one per pool tensor, so an int8 pool
+        ships its scales alongside).  ``P`` is the block count ``n_blocks``
+        padded to its power-of-two bucket with the scratch block 0, as
+        the reference pads it for its compile buckets, so both packages
+        ship the same shapes.  The gather's advanced indexing makes NEW
+        tensors, queued on the stream that every later write to the pool
+        follows, so a step that reuses the released blocks cannot reach
+        the shipped tensors."""
+        req = self._exports.pop(request_id)
+        n = len(req.blocks)
+        P = _bucket(n, self.MB + 1)
+        ids = np.zeros(P, np.int64)
+        ids[:n] = req.blocks
+        ids_d = torch.as_tensor(ids, device=self.device)
+        kv = {name: t[:, ids_d] for name, t in self.pool.items()}
+        for bid in req.blocks:
+            self.blocks.release(bid)
+        req.blocks = []
+        self.handoff_stats["exported"] += 1
+        return {
+            "request_id": req.request_id,
+            "prompt_tokens": list(req.prompt_tokens),
+            "n_prompt": req.n_prompt,
+            "out_tokens": list(req.out_tokens),
+            "sampling": req.sampling,
+            "kv_cache_dtype": self.kv_cache_dtype,
+            "block_size": self.bs,
+            "n_blocks": n,
+            "kv": kv,
+        }
+
+    def release_export(self, request_id: int) -> bool:
+        """Abandonment path: drop a held export (client gone before the
+        handoff shipped) and release its block refs."""
+        req = self._exports.pop(request_id, None)
+        if req is None:
+            return False
+        for bid in req.blocks:
+            self.blocks.release(bid)
+        req.blocks = []
+        return True
+
+    def adopt_prefilled(self, handoff: Dict[str, Any],
+                        sampling: Optional[SamplingParams] = None
+                        ) -> Optional[int]:
+        """Graft a shipped prefill into this engine: allocate local
+        blocks, scatter the shipped KV into the pool, register the full
+        prompt blocks' prefix-chain keys (future local prompts hit the
+        shipped prefix too), and queue a ready-to-decode request seeded
+        with the prefill's first token.  Returns the local request id, or
+        None under pool pressure (the caller re-prefills the prompt
+        through the ordinary path).  A handoff this engine cannot take
+        (another KV dtype, block size, pool layout, or a sequence longer
+        than its table) raises ``ValueError`` before any block is
+        allocated.  The shipped tensors may lie on another device (a
+        channel lands them on the reader's); they are copied onto the
+        pool's."""
+        kv = handoff["kv"]
+        if handoff.get("kv_cache_dtype") != self.kv_cache_dtype:
+            raise ValueError(
+                f"handoff kv_cache_dtype {handoff.get('kv_cache_dtype')!r} "
+                f"!= engine {self.kv_cache_dtype!r}")
+        if int(handoff.get("block_size", self.bs)) != self.bs:
+            raise ValueError(
+                f"handoff block_size {handoff.get('block_size')} != "
+                f"engine block_size {self.bs}")
+        ref = self.pool["k"]
+        P = int(kv["k"].shape[1])  # bucketed width (scratch-padded)
+        if set(kv) != set(self.pool) or any(
+                kv[name].dtype != t.dtype or kv[name].shape[1] != P
+                or kv[name].shape[0] != t.shape[0]
+                or kv[name].shape[2:] != t.shape[2:]
+                for name, t in self.pool.items()):
+            raise ValueError(
+                f"handoff pool layout "
+                f"{ {k: (tuple(v.shape), v.dtype) for k, v in kv.items()} } "
+                f"incompatible with engine pool {tuple(ref.shape)} "
+                f"{ref.dtype}")
+        prompt = list(handoff["prompt_tokens"])
+        n = len(prompt)
+        n_ship = int(handoff.get("n_blocks", P))
+        # a handoff from a LARGER-max_len prefill engine must fail the one
+        # request here (the caller re-prefills or errors), never crash the
+        # engine loop scattering past the [B, MB] table width
+        if n_ship > self.MB or n >= self.max_len:
+            raise ValueError(
+                f"handoff of {n_ship} blocks / {n} prompt tokens exceeds "
+                f"this engine's table ({self.MB} blocks, max_len "
+                f"{self.max_len}) — prefill and decode pools must share "
+                f"max_len/block_size")
+        keys = self._prompt_chain_keys(prompt)
+        key_list = [keys[b] if b < len(keys) and (b + 1) * self.bs <= n
+                    else None for b in range(n_ship)]
+        bids = self.blocks.adopt(key_list)
+        if bids is None:
+            self.handoff_stats["adopt_failures"] += 1
+            return None
+        # only the n_ship real lanes: the reference also scatters the pad
+        # lanes into the scratch block (one compiled program per bucket),
+        # and on CUDA those duplicate indices would write in any order
+        dst = torch.as_tensor(bids, dtype=torch.int64, device=self.device)
+        try:
+            for name, t in self.pool.items():
+                t[:, dst] = kv[name][:, :n_ship].to(t.device)
+        except BaseException:
+            # the scatter failed AFTER the blocks were allocated and
+            # registered: the never-written blocks must be unpublished,
+            # not leaked with chain keys pointing at garbage
+            self.blocks.unpublish_free(bids)
+            raise
+        sp = sampling or handoff.get("sampling") or SamplingParams(
+            stop_token_id=getattr(self.tokenizer, "eos_id", None))
+        req = Request(next(self._ids), prompt, sp,
+                      out_tokens=list(handoff.get("out_tokens", [])),
+                      blocks=bids, n_prompt=int(handoff.get("n_prompt", n)))
+        # re-evaluate finish conditions locally: the prefill side's first
+        # token may already exhaust the budget (max_tokens=1) or the
+        # prompt may sit at the engine's length ceiling
+        if not req.out_tokens:
+            req.done = True  # stop token hit at the prefill's first sample
+        elif (req.num_generated >= sp.max_tokens
+              or len(req.prompt_tokens) + len(req.out_tokens)
+              >= self.max_len - 1):
+            req.done = True
+        self._adopt_queue.append(req)
+        self.handoff_stats["adopted"] += 1
+        return req.request_id
+
     def stats(self) -> Dict[str, Any]:
         """Engine signals: queue depth, slot occupancy, block-pool
-        pressure, prefix-cache, chunk and speculation counters and the
-        prefill/decode timing.  Host-side bookkeeping only — no device
-        sync."""
+        pressure, prefix-cache, chunk, speculation and handoff counters
+        and the prefill/decode timing.  Host-side bookkeeping only — no
+        device sync."""
         used = sum(1 for s in self._slots if s is not None)
         capacity = max(1, self.num_blocks - 1)  # excl. the scratch block
         available = self.blocks.available()
         return {
             "queued": len(self._queue),
+            "adopt_queued": len(self._adopt_queue),
+            "exports_held": len(self._exports),
             "slots_used": used,
             "slots_total": self.B,
             "slot_occupancy": round(used / self.B, 4),
@@ -510,6 +731,7 @@ class LLMEngine:
             "prefix_cache": dict(self.blocks.stats),
             "prefill_chunks": self.prefill_stats["chunks"],
             "spec": dict(self.spec_stats),
+            "handoff": dict(self.handoff_stats),
             "timing": dict(self.timing),
         }
 
@@ -941,6 +1163,11 @@ class LLMEngine:
             return
         req.out_tokens.append(tok)
         self._next_token[i] = tok
+        if req.prefill_only:
+            # the first sampled token is the handoff payload's seed; the
+            # decode engine generates everything after it
+            req.done = True
+            return
         if (req.num_generated >= sp.max_tokens
                 or len(req.prompt_tokens) + len(req.out_tokens)
                 >= self.max_len - 1):

@@ -1,0 +1,241 @@
+"""KV-block shipping: the disaggregated prefill/decode data plane.
+
+Counterpart of ``ray_tpu/llm/kv_transfer.py`` on the port's channel plane
+(:mod:`ray_tpu_torch.experimental.channel.transport`).  A **prefill
+engine** runs prefill-only requests and parks each finished one as an
+export (``LLMEngine.export_kv``); this module moves those block-aligned
+pool slices to a **decode engine** over one :class:`EdgeTransport` per
+(prefill, decode) pair:
+
+- the tier is negotiated per pair from the endpoints' probes exactly as
+  compiled-graph edges negotiate: tier B device frames between CUDA
+  processes of one node (``RAY_TPU_TORCH_DEVICE_EMULATE=1`` is the CPU
+  proxy), tier C host shm otherwise; one wire format (the marker-word
+  frame), so a degraded writer never desyncs its reader;
+- a write serializes the KV tensors straight into the channel segment
+  (pickle-5 out-of-band buffers: one copy of the block bytes into the
+  segment, counted by ``COPY_STATS``; a CUDA tensor is first copied to
+  the host, as ``np.asarray`` does in the reference);
+- the decode side lands a device frame by an H2D copy straight from its
+  page-locked mapping of the segment into fresh tensors on its card,
+  synchronised before the segment is released, so landed tensors never
+  alias the reusable segment; ``adopt_prefilled`` then grafts them into
+  the pool with their prefix-cache chain keys, no re-prefill.
+
+Fault site: ``llm.kv_ship`` guards every handoff write on the prefill
+side (:mod:`ray_tpu_torch.util.fault_injection`).  Every wait is bounded:
+a dead peer surfaces as a failed handoff (:class:`KVShipError`) and the
+caller re-prefills instead of wedging a thread.
+
+``LLMEngine`` is not thread-safe, and a landing strip delivers on its own
+thread: the ``adopt`` callback either only queues the handoff for the
+thread that steps the engine, or takes the same lock as ``step()``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, List, Optional
+
+from ray_tpu_torch.experimental.channel.shared_memory_channel import (
+    ChannelClosedError,
+    ChannelTimeoutError,
+)
+from ray_tpu_torch.experimental.channel.transport import (
+    TIER_FUSED,
+    TIER_HOST,
+    EdgeTransport,
+    EndpointInfo,
+    local_endpoint_info,
+    make_edge_transport,
+    negotiate,
+)
+from ray_tpu_torch.util.fault_injection import fault_point
+
+
+class KVShipError(RuntimeError):
+    """A handoff could not be delivered (peer dead, channel wedged, or
+    the payload outgrew the negotiated segment)."""
+
+
+def handoff_channel_bytes(engine, *, slack: int = 1 << 20,
+                          cap: int = 1 << 30) -> int:
+    """Segment size that holds the largest possible single handoff for
+    ``engine``: a full sequence's blocks (``MB + 1``: the admission
+    footprint includes the first-decode block) across every pool tensor,
+    plus pickle framing slack.  Sized at connect time because channel
+    capacity is fixed for the segment's lifetime."""
+    per_block = 0
+    for t in engine.pool.values():
+        # [L, num_blocks, bs, ...] -> bytes of ONE block across layers
+        per_block += t.element_size() * (t.numel() // t.shape[1])
+    return min(cap, (engine.MB + 1) * per_block + slack)
+
+
+class KVBlockShipper:
+    """Prefill-side writer: one sticky negotiated channel per decode
+    peer, handoffs serialized zero-copy into it.
+
+    ``connect(peer_key, peer_info, register)`` negotiates the tier from
+    this process's endpoint probe and the peer's, builds the writer-side
+    transport, and calls ``register(transport)``: the caller delivers
+    that (picklable) transport to the peer, which attaches it and starts
+    landing handoffs.  Channels are per pair and single-reader; one
+    handoff is in flight per peer at a time (a write waits until the
+    reader acked the previous one)."""
+
+    def __init__(self, owner_id: str, *, channel_bytes: int,
+                 ship_timeout_s: float = 60.0):
+        self.owner_id = owner_id
+        self.channel_bytes = int(channel_bytes)
+        self.ship_timeout_s = float(ship_timeout_s)
+        self._peers: Dict[str, EdgeTransport] = {}
+        self._lock = threading.Lock()  # peer-map mutations only
+        self._peer_locks: Dict[str, threading.Lock] = {}
+
+    def peers(self) -> List[str]:
+        with self._lock:
+            return sorted(self._peers)
+
+    def tier_of(self, peer_key: str) -> Optional[str]:
+        with self._lock:
+            tr = self._peers.get(peer_key)
+            return None if tr is None else tr.tier
+
+    def connect(self, peer_key: str, peer_info: Optional[EndpointInfo],
+                register: Callable[[EdgeTransport], None]) -> EdgeTransport:
+        """Negotiate and build the channel to one decode peer (idempotent:
+        an existing live channel is reused).  Serialized per peer: the
+        reader end must be REGISTERED on the peer exactly once."""
+        with self._lock:
+            tr = self._peers.get(peer_key)
+            if tr is not None:
+                return tr
+            plock = self._peer_locks.setdefault(peer_key,
+                                                threading.Lock())
+        with plock:
+            with self._lock:
+                tr = self._peers.get(peer_key)
+                if tr is not None:
+                    return tr  # a concurrent connect won while we waited
+            tier = negotiate(local_endpoint_info(), peer_info)
+            if tier == TIER_FUSED:
+                # a same-process "pair" still moves payloads through a
+                # real segment: fused is a compiled-graph concept, not a
+                # shipping tier
+                tier = TIER_HOST
+            tr = make_edge_transport(
+                tier=tier, edge=f"kv:{self.owner_id}->{peer_key}",
+                buffer_size=self.channel_bytes, num_readers=1)
+            try:
+                register(tr)
+            except Exception:
+                tr.destroy()
+                raise
+            with self._lock:
+                self._peers[peer_key] = tr
+        return tr
+
+    def ship(self, peer_key: str, handoff: Dict[str, Any],
+             timeout: Optional[float] = None) -> Dict[str, Any]:
+        """Write one handoff payload to ``peer_key``; returns ``{"tier",
+        "bytes"}``.  A dead or wedged peer raises :class:`KVShipError`
+        and retires the channel: the caller falls back to re-prefill on
+        the decode side (never a silent drop).  A payload larger than the
+        segment raises ``ValueError`` and leaves the channel usable."""
+        fault_point("llm.kv_ship")
+        with self._lock:
+            tr = self._peers.get(peer_key)
+            plock = self._peer_locks.get(peer_key)
+        if tr is None or plock is None:
+            raise KVShipError(f"no channel to decode peer {peer_key!r}")
+        timeout = self.ship_timeout_s if timeout is None else timeout
+        sent0 = tr.stats["bytes_sent"]
+        try:
+            with plock:
+                tr.write(handoff, timeout=timeout)
+        except (ChannelClosedError, ChannelTimeoutError, OSError) as e:
+            self.drop_peer(peer_key)
+            raise KVShipError(
+                f"handoff to {peer_key!r} failed ({type(e).__name__}): "
+                f"{e}") from e
+        return {"tier": tr.tier, "bytes": tr.stats["bytes_sent"] - sent0}
+
+    def drop_peer(self, peer_key: str) -> None:
+        # the peer LOCK is kept: a reconnect racing this drop must keep
+        # serializing on the same lock object (bounded by peer count)
+        with self._lock:
+            tr = self._peers.pop(peer_key, None)
+        if tr is not None:
+            try:
+                tr.destroy()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+
+    def close(self) -> None:
+        for key in self.peers():
+            self.drop_peer(key)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {key: dict(tr.stats, tier=tr.tier)
+                    for key, tr in self._peers.items()}
+
+
+class KVLandingStrip:
+    """Decode-side reader: one thread per attached channel, landing every
+    handoff through ``adopt(handoff) -> bool`` (True = grafted or queued
+    for grafting).  Reads are bounded polls so a writer that dies silent
+    never wedges the thread; a closed channel retires its reader
+    cleanly."""
+
+    def __init__(self, adopt: Callable[[Dict[str, Any]], bool], *,
+                 poll_s: float = 0.25):
+        self._adopt = adopt
+        self._poll_s = poll_s
+        self._stop = threading.Event()
+        self._lock = threading.Lock()  # guards stats + thread list
+        self._threads: List[threading.Thread] = []
+        self._stats = {"landed": 0, "adopt_failed": 0, "channels": 0,
+                       "decode_errors": 0}
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._stats)
+
+    def attach(self, transport: EdgeTransport,
+               peer_key: str = "") -> None:
+        transport.set_reader_slot(0)
+        t = threading.Thread(
+            target=self._land_loop, args=(transport,),
+            name=f"llm-kv-land-{peer_key or transport.name}", daemon=True)
+        with self._lock:
+            self._threads.append(t)
+            self._stats["channels"] += 1
+        t.start()
+
+    def _land_loop(self, transport: EdgeTransport) -> None:
+        while not self._stop.is_set():
+            try:
+                handoff = transport.read(timeout=self._poll_s)
+            except ChannelTimeoutError:
+                continue
+            except ChannelClosedError:
+                return  # writer tore the channel down: reader retires
+            except Exception:  # noqa: BLE001 — corrupt frame: count, go on
+                with self._lock:
+                    self._stats["decode_errors"] += 1
+                continue
+            try:
+                ok = self._adopt(handoff)
+            except Exception:  # noqa: BLE001 — adopt must not kill the loop
+                ok = False
+            with self._lock:
+                self._stats["landed" if ok else "adopt_failed"] += 1
+
+    def stop(self, join_timeout_s: float = 2.0) -> None:
+        self._stop.set()
+        with self._lock:
+            threads, self._threads = self._threads, []
+        for t in threads:
+            t.join(timeout=join_timeout_s)

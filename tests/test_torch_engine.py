@@ -224,16 +224,33 @@ def test_unported_engine_options_raise(models, kwargs):
 @pytest.mark.parametrize("call", ["prefill_only", "export_kv",
                                   "adopt_prefilled"])
 def test_unported_handoff_raises(models, call):
+    """The hand-off calls that raised ``NotImplementedError`` before the
+    disaggregated-serving slice now behave as the reference's: a
+    prefill-only request retires after its first token with its blocks
+    held for export, and an unknown export id or a handoff without KV
+    raises the reference's ``KeyError``, never ``NotImplementedError``
+    (the full hand-off is held against JAX in ``test_torch_disagg.py``)."""
     jcfg, tcfg, tree, params = models
-    eng = tengine.LLMEngine(tcfg, params, batch_slots=1, max_len=32,
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="disaggregated"):
+    engines = (jengine.LLMEngine(jcfg, tree, batch_slots=1, max_len=32),
+               tengine.LLMEngine(tcfg, params, batch_slots=1, max_len=32,
+                                 device="cpu"))
+    outcomes = []
+    for eng, SP in zip(engines, (JSamplingParams, SamplingParams)):
         if call == "prefill_only":
-            eng.submit([3, 4], prefill_only=True)
-        elif call == "export_kv":
-            eng.export_kv(0)
+            rid = eng.submit([3, 4], SP(temperature=0.0, max_tokens=8),
+                             prefill_only=True)
+            outs = [(o.request_id, len(o.token_ids)) for o in eng.step()]
+            outcomes.append((outs, sorted(eng._exports),
+                             eng.has_unfinished()))
+            assert outs == [(rid, 1)] and rid in eng._exports
         else:
-            eng.adopt_prefilled({})
+            with pytest.raises(KeyError) as err:
+                if call == "export_kv":
+                    eng.export_kv(0)
+                else:
+                    eng.adopt_prefilled({})
+            outcomes.append(str(err.value))
+    assert outcomes[1] == outcomes[0]
 
 
 def test_tokenizer_copy_matches_reference():

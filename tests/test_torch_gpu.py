@@ -500,15 +500,18 @@ def test_channel_read_value_lands_on_card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("check", ["spec_engine", "chunked_prefill",
-                                   "int8_folded", "generate_speculative"])
+                                   "int8_folded", "generate_speculative",
+                                   "disagg_handoff"])
 def test_serving_options_exact_in_fp32_on_card(check):
     """``chip_smoke.py``'s ``small_reference`` checks of the serving
     options on the small fp32 model, each raising on a mismatch: the
     speculative engine's tokens equal the plain engine's, chunked prefill
     equals unchunked, the int8 folded attend is within 2e-2 of eager
-    dequantization, and ``generate(speculative=4)`` equals greedy
-    ``generate``.  (bf16 is not token-exact between GEMM shapes, so these
-    hold in fp32.)"""
+    dequantization, ``generate(speculative=4)`` equals greedy
+    ``generate``, and the disaggregated hand-off over a device-tier edge
+    equals the colocated engine, each landed tensor bit-equal to its
+    export and no frame degraded.  (bf16 is not token-exact between GEMM
+    shapes, so these hold in fp32.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the check runs the port's serving "
                     "paths on the card")

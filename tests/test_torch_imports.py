@@ -59,7 +59,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "ray_tpu_torch._private.shm, ray_tpu_torch._private.serialization, "
         "ray_tpu_torch.experimental, ray_tpu_torch.experimental.channel, "
         "ray_tpu_torch.experimental.channel.shared_memory_channel, "
-        "ray_tpu_torch.experimental.channel.transport\n"
+        "ray_tpu_torch.experimental.channel.transport, "
+        "ray_tpu_torch.llm.kv_transfer, ray_tpu_torch.util.fault_injection\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
@@ -72,9 +73,24 @@ def test_import_leaves_jax_and_reference_unloaded():
 
 
 def test_port_lints_clean():
-    from ray_tpu._private.analysis.core import run_lint
+    """raylint over the port, every rule on.  The fault-site rule looks
+    for its registry at the reference's path, so that module is scanned
+    beside the port: each ``fault_point`` site of the port must then be
+    documented where the rule looks (``docs/fault_tolerance.md`` and the
+    reference registry's table) and, checked here, in the site table of
+    the port's own registry, ``ray_tpu_torch/util/fault_injection.py``."""
+    from ray_tpu._private.analysis.checkers.fault_sites import _sites
+    from ray_tpu._private.analysis.core import (Project, _collect_files,
+                                                run_lint)
 
-    result = run_lint(REPO, paths=["ray_tpu_torch"])
+    registry = "ray_tpu/util/fault_injection.py"
+    result = run_lint(REPO, paths=["ray_tpu_torch", registry])
     assert result.files_scanned >= 10
     assert not result.findings, "\n".join(f.render()
                                           for f in result.findings)
+    port = Project(REPO, _collect_files(REPO, ["ray_tpu_torch"]))
+    sites = _sites(port)
+    assert "llm.kv_ship" in sites
+    doc = ast.get_docstring(
+        port.file("ray_tpu_torch/util/fault_injection.py").tree)
+    assert [s for s in sites if f"``{s}``" not in doc] == []
