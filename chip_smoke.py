@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
    and nvcc versions, and the build of every CUDA kernel from the
    repository's own sources (all nvcc processes started together), with
    each kernel's registers and spill bytes from ptxas; the tensor-core
-   kernels must not spill.
+   kernels must not spill.  Then how many profiler windows lost kernels
+   of a short one launched in them, with the window held open
+   ``PROFILE_PAD_S`` either side as every window here is, and without.
 2. ``kernel``: each kernel against its plain PyTorch version on the card,
    per case one line for K1 (the flash forward) and one for K2/K3 (its
    backward), with the kernels', the plain version's and one library
@@ -43,9 +45,11 @@ Phases, each printing one JSON line:
    folded attend against eager dequantization within 2e-2, dense
    ``generate(speculative=4)`` against greedy ``generate``, and the
    disaggregated hand-off over a device-tier edge against the colocated
-   engine, each landed tensor bit-equal to its export), and three
+   engine, each landed tensor bit-equal to its export), three
    train steps (K1/K2/K3 under ``save_attn``) against the same steps
-   through the plain versions on the CPU.
+   through the plain versions on the CPU, and a small MoE (4 experts,
+   top-2) held alike: its forward, then three train steps under its full
+   remat.
 4. ``channel``: a device-tier edge between two processes.  This process
    writes ten 16 MiB bf16 activations (and a step counter) through
    ``make_edge_transport``; a reader started with ``spawn`` on the same
@@ -94,9 +98,28 @@ Phases, each printing one JSON line:
    bf16 activations, ``save_attn``) takes two warm-up and three timed
    steps on b=1, s=2048 random tokens; K1, K2 and K3 must each launch
    once per layer per step, and loss and grad norm must be finite.
+11. ``train_save_attn_mlp`` and ``train_save_dots``: the same train step
+   under the other two remat policies, from the same seed and tokens (one
+   warm-up and two timed steps each): K1 launches once per layer per
+   step under ``save_attn_mlp`` and twice under ``save_dots`` (which
+   replays the flash forward), K2 and K3 once; the first step's loss
+   must be bit-equal to ``save_attn``'s and its grad norm within rtol
+   1e-3.
+12. ``moe_forward``: ``moe_apply`` at Mixtral-8x7B width (GQA 32/8, 8
+   experts, top-2) in bf16 weights cut to 24 of 32 layers (or the
+   deepest that leaves 8 GB free, reckoned and printed before anything
+   is allocated), b=1, s=2048: one warm-up and three timed forwards; K1
+   launches once per layer; TFLOP/s by the dense dispatch's FLOPs and by
+   the active top-2 FLOPs.
+13. ``moe_train``: ``make_moe_trainer`` at Mixtral-8x7B width cut to 2
+   layers (fp32 params and AdamW state, bf16 activations, each layer
+   replayed whole as the reference's remat), b=1, s=2048, two warm-up
+   and three timed steps; K1 must launch twice per layer per step, K2
+   and K3 once.
 
 Then the ``kernels`` line (every ported kernel with its launches on its
-main path: K1, K2 and K3 in ``train``, K4 in ``ring``), the
+main path: K1, K2 and K3 in ``train``, K4 in ``ring``; the launches of
+every path that runs it, and K1-K3 at Mixtral's attention shape), the
 ``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the traceback is
 printed, the exit code is non-zero and no result line is printed.  Without
@@ -140,11 +163,32 @@ TRAIN_LAYERS = 16
 TRAIN_STEPS = 3
 DEPTH_CUT = ("32 → 16 layers: fp32 params + AdamW state of the full depth "
              "is ~108 GB")
+# the Llama train step under the other remat policies (same width, depth,
+# batch, seed and tokens as train): warm-up and timed steps
+POLICY_WARMUP, POLICY_STEPS = 1, 2
+# Mixtral-8x7B: the forward in bf16 weights, and the train step in fp32
+# params + AdamW; the forward keeps MOE_RESERVE bytes of the card free
+MOE_FORWARD_LAYERS = 24
+MOE_FORWARD_STEPS = 3
+MOE_RESERVE = 8e9
+MOE_FORWARD_CUT = ("32 → 24 layers: bf16 weights of the full depth are "
+                   "93.4 GB, of 24 layers 70.2 GB")
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_CUT = ("32 → 2 layers: fp32 params + grads + AdamW moments are "
+                 "16 B per param, 50.6 GB at 2 layers and 73.9 GB at 3, "
+                 "where a 3.76 GB expert leaf's AdamW temporaries would not "
+                 "fit")
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 on the CUDA cores, HBM3 bandwidth, NVLink each way
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 PEAK_NVLINK_BYTES = 450e9
+# host seconds that a profiler window stays open before the first call and
+# after the card finishes (``device_events``)
+PROFILE_PAD_S = 0.05
+# windows per pad (PROFILE_PAD_S and none) that the env phase counts
+# kernels lost in (``profiler_window_losses``)
+PROFILER_WINDOWS = 40
 # the channel plane's payload: one Llama-2-7B pipeline-stage activation
 # [b=1, s=SEQ, hidden 4096] in bf16, 16 MiB
 ACTIVATION = (1, SEQ, 4096)
@@ -169,6 +213,9 @@ K1_CASES = [
     ("non_causal_d64", 2, 512, 16, 16, 64, "bfloat16", False, 2e-2, 1e-3),
     ("fp32", 1, 384, 8, 2, 128, "float32", True, 1e-4, 1e-4),
     ("fp32_d64_ragged", 1, 333, 4, 4, 64, "float32", True, 1e-4, 1e-4),
+    # Mixtral-8x7B's attention (GQA 32/8), the shape of moe_forward and
+    # moe_train
+    ("mixtral_gqa", 1, SEQ, 32, 8, 128, "bfloat16", True, 2e-2, 1e-3),
 ]
 
 # K2/K3 against their plain version, per output (dq, dk, dv): elementwise
@@ -258,6 +305,40 @@ def train_flops_per_step(cfg, batch, seq) -> float:
     return dense + attn
 
 
+def moe_forward_flops(cfg, batch, seq, experts) -> float:
+    """FLOPs of one MoE forward with ``experts`` experts computing each
+    token: 2 per multiply-add of every product (q, k, v, o, the router,
+    each expert's gate, up and down, the head) plus causal attention
+    (``attention_flops``).  ``experts = cfg.num_experts`` counts what the
+    dense dispatch computes, ``cfg.experts_per_token`` the active
+    (top-k) FLOPs that a sparse dispatch would."""
+    h, hd = cfg.hidden_size, cfg.resolved_head_dim
+    per_token_layer = 2 * h * (2 * cfg.num_heads * hd
+                               + 2 * cfg.num_kv_heads * hd
+                               + cfg.num_experts
+                               + experts * 3 * cfg.mlp_dim)
+    dense = batch * seq * (cfg.num_layers * per_token_layer
+                           + 2 * h * cfg.vocab_size)
+    return dense + cfg.num_layers * attention_flops(
+        batch, seq, seq, cfg.num_heads, hd, True)
+
+
+def moe_forward_bytes(cfg, layers, seq) -> dict:
+    """What ``moe_forward`` reckons before it allocates, in bytes: the bf16
+    weights at ``layers`` deep, and the largest transients of a forward of
+    b=1 (the two folded [h, E*m] weights, gate, up and the swiglu output
+    [s, E*m], the E experts' outputs, the logits and the fp32 head)."""
+    per_layer = (cfg.num_params() - 2 * cfg.vocab_size * cfg.hidden_size
+                 - cfg.hidden_size) // cfg.num_layers
+    weights = 2 * (2 * cfg.vocab_size * cfg.hidden_size + cfg.hidden_size
+                   + layers * per_layer)
+    em, h = cfg.num_experts * cfg.mlp_dim, cfg.hidden_size
+    transients = (2 * (2 * h * em + 3 * seq * em
+                       + cfg.num_experts * seq * h)
+                  + 4 * (seq * cfg.vocab_size + h * cfg.vocab_size))
+    return {"weights": weights, "transients": transients}
+
+
 def ptxas_report(text):
     """``nvcc -Xptxas -v`` output as ``{"kernels": {name<args>: {registers,
     spill_stores, spill_loads}}, "warnings": [...]}``."""
@@ -305,7 +386,13 @@ def phase_env():
           "cuda": torch.version.cuda, "nvcc": nvcc,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "ptxas": ptxas,
+          "profiler_windows": {
+              "windows": PROFILER_WINDOWS, "pad_s": PROFILE_PAD_S,
+              "losing_kernels": profiler_window_losses(PROFILER_WINDOWS,
+                                                       PROFILE_PAD_S),
+              "losing_kernels_unpadded": profiler_window_losses(
+                  PROFILER_WINDOWS, 0.0)}})
     spills = {k: r for lib in ptxas.values()
               for k, r in lib["kernels"].items()
               if "wgmma" in k and (r.get("spill_stores")
@@ -1137,7 +1224,8 @@ def phase_small_reference(device="cuda"):
     through K1 against the reference attention (fp32 sums in another
     order: 1e-4), greedy engine tokens against full-recompute argmax
     (token-exact), the serving options held exact in fp32
-    (``SERVING_OPTION_CHECKS``) and three train steps."""
+    (``SERVING_OPTION_CHECKS``), three train steps, and a small MoE's
+    forward and three train steps (``small_moe_reference``)."""
     import torch
 
     from ray_tpu_torch.llm import LLMEngine, SamplingParams
@@ -1174,7 +1262,8 @@ def phase_small_reference(device="cuda"):
                for name, check in SERVING_OPTION_CHECKS.items()}
     return {"forward_k1_vs_ref_max_abs": fwd_err,
             "engine_tokens_checked": sum(len(o.token_ids) for o in outs),
-            "serving_options": options, **small_train_reference(device)}
+            "serving_options": options, **small_train_reference(device),
+            "moe": small_moe_reference(device)}
 
 
 def _greedy_tokens(eng, prompts, max_tokens):
@@ -1515,48 +1604,43 @@ SERVING_OPTION_CHECKS = {"spec_engine": check_spec_engine,
                          "disagg_handoff": check_disagg_handoff}
 
 
-def small_train_reference(device="cuda", steps=3):
-    """Three fp32 train steps of a small model (head_dim 64, s=300, flash
-    attention under ``save_attn``) on ``device`` and through the plain
-    versions on the CPU, from the same weights and tokens.  Loss to rtol
-    1e-5 and grad norm to 1e-4 (fp32 sums in another order).  Params: the
-    difference of the two updates has at most 1e-3 of the update's L2
-    norm, and no element differs by more than Adam's bound of one step
-    each way (2 * the sum of the learning rates): Adam moves each element
-    by about lr whatever its grad, so an element whose grad is about eps
-    (1e-8) can turn on fp32 summation noise alone.  On the card K1, K2
-    and K3 must each launch once per layer per step."""
+def _launch_counts():
+    from ray_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
+                                                        flash_attention_fwd)
+
+    return (flash_attention_fwd.launches, flash_attention_bwd.dq_launches,
+            flash_attention_bwd.dkv_launches)
+
+
+def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps):
+    """``steps`` fp32 train steps of ``make_trainer(cfg)`` from ``params``
+    on ``device`` and through the plain versions on the CPU, from the same
+    weights and tokens.  Loss to rtol 1e-5 and grad norm to 1e-4 (fp32
+    sums in another order).  Params: the difference of the two updates
+    has at most 1e-3 of the update's L2 norm, and no element differs by
+    more than Adam's bound of one step each way (2 * the sum of the
+    learning rates): Adam moves each element by about lr whatever its
+    grad, so an element whose grad is about eps (1e-8) can turn on fp32
+    summation noise alone.  Returns the errors and the K1/K2/K3 launches
+    of the steps on ``device``."""
     import copy
 
     import torch
 
-    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
-    from ray_tpu_torch.models.training import (default_optimizer,
-                                               make_llama_trainer,
-                                               tree_leaves)
-    from ray_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
-                                                        flash_attention_fwd)
+    from ray_tpu_torch.models.training import default_optimizer, tree_leaves
 
-    cfg = LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
-                           max_seq_len=512, attention_impl="flash")
-    params = llama_init(cfg, seed=5, device="cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 301),
-                           generator=torch.Generator().manual_seed(6))
     opt = default_optimizer(lr=1e-3, warmup=1, decay_steps=10)
     runs = {}
     for dev in (device, "cpu"):
-        tr = make_llama_trainer(cfg, optimizer=opt, device=dev)
+        tr = make_trainer(cfg, optimizer=opt, device=dev)
         state = tr.init_state(params=copy.deepcopy(params))
-        counts = (flash_attention_fwd.launches,
-                  flash_attention_bwd.dq_launches,
-                  flash_attention_bwd.dkv_launches)
+        counts = _launch_counts()
         metrics = []
         for _ in range(steps):
             state, m = tr.step(state, {"tokens": tokens})
             metrics.append([float(m["loss"]), float(m["grad_norm"])])
-        launched = [now - before for now, before in zip(
-            (flash_attention_fwd.launches, flash_attention_bwd.dq_launches,
-             flash_attention_bwd.dkv_launches), counts)]
+        launched = [now - before for now, before in zip(_launch_counts(),
+                                                        counts)]
         runs[dev] = (metrics, [t.detach().cpu() for t in
                                tree_leaves(state["params"])], launched)
     (got, got_p, launched), (want, want_p, _) = runs[device], runs["cpu"]
@@ -1575,14 +1659,81 @@ def small_train_reference(device="cuda", steps=3):
             f"rel {loss_err}, grad norm rel {norm_err}, update rel L2 "
             f"{update_err}, params max |d| {param_err} (bound "
             f"{one_step_each_way})")
-    if device == "cuda" and launched != [steps * cfg.num_layers] * 3:
-        raise AssertionError(f"K1/K2/K3 launched {launched} times in "
-                             f"{steps} steps of {cfg.num_layers} layers")
     return {"train_losses_grad_norms": got,
             "train_loss_rel_err": loss_err, "train_norm_rel_err": norm_err,
             "train_params_max_abs_err": param_err,
             "train_update_rel_l2_err": update_err,
             "train_k1_k2_k3_launches": launched}
+
+
+def small_train_reference(device="cuda", steps=3):
+    """Three fp32 train steps of a small Llama (head_dim 64, s=300, flash
+    attention under ``save_attn``) on ``device`` against the plain path
+    on the CPU (``train_vs_cpu``).  On the card K1, K2 and K3 must each
+    launch once per layer per step."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.models.training import make_llama_trainer
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                           max_seq_len=512, attention_impl="flash")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 301),
+                           generator=torch.Generator().manual_seed(6))
+    out = train_vs_cpu(cfg, llama_init(cfg, seed=5, device="cpu"),
+                       make_llama_trainer, tokens, device, steps)
+    launched = out["train_k1_k2_k3_launches"]
+    if device == "cuda" and launched != [steps * cfg.num_layers] * 3:
+        raise AssertionError(f"K1/K2/K3 launched {launched} times in "
+                             f"{steps} steps of {cfg.num_layers} layers")
+    return out
+
+
+def small_moe_reference(device="cuda", steps=3):
+    """A small fp32 MoE (head_dim 64, which K1-K3 take; 4 experts, top-2;
+    s=300; flash attention) on ``device`` against the plain path on the
+    CPU, from the same weights and tokens: the forward's logits (fp32
+    sums in another order: 1e-4, as the Llama forward) and router aux
+    (rtol 1e-5), then ``steps`` trainer steps (``train_vs_cpu``).  On the
+    card K1 must launch once per layer in the forward and, each layer
+    replayed whole under remat, twice per layer per step, K2 and K3 once
+    per layer per step."""
+    import torch
+
+    from ray_tpu_torch.models.moe import (MoEConfig, make_moe_trainer,
+                                          moe_apply, moe_init)
+
+    cfg = MoEConfig.tiny_moe(hidden_size=256, num_heads=4, num_kv_heads=2,
+                             max_seq_len=512, dtype=torch.float32,
+                             attention_impl="flash")
+    params = moe_init(cfg, seed=7, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 301),
+                           generator=torch.Generator().manual_seed(8))
+    with torch.no_grad():
+        want, want_aux = moe_apply(params, tokens[:, :-1], cfg)
+        before = _launch_counts()[0]
+        on_device = {k: ({n: t.to(device) for n, t in v.items()}
+                         if isinstance(v, dict) else v.to(device))
+                     for k, v in params.items()}
+        got, got_aux = moe_apply(on_device, tokens[:, :-1].to(device), cfg)
+        fwd_launched = _launch_counts()[0] - before
+    fwd_err = float((got.cpu() - want).abs().max())
+    aux_err = abs(float(got_aux) - float(want_aux)) / abs(float(want_aux))
+    if not (fwd_err <= 1e-4 and aux_err <= 1e-5):
+        raise AssertionError(f"MoE forward on {device} vs the plain path on "
+                             f"the CPU: logits max |d| {fwd_err} (1e-4), aux "
+                             f"rel {aux_err} (1e-5)")
+    out = train_vs_cpu(cfg, params, make_moe_trainer, tokens, device, steps)
+    L = cfg.num_layers
+    launched = out["train_k1_k2_k3_launches"]
+    if device == "cuda" and (fwd_launched != L or launched != [
+            2 * steps * L, steps * L, steps * L]):
+        raise AssertionError(f"MoE: K1 launched {fwd_launched} times in the "
+                             f"forward, K1/K2/K3 {launched} times in {steps} "
+                             f"steps of {L} layers under full remat")
+    return {"forward_vs_cpu_max_abs": fwd_err, "aux_vs_cpu_rel": aux_err,
+            "forward_k1_launches": fwd_launched,
+            **out}
 
 
 def phase_forward(cfg, params, device="cuda"):
@@ -2082,30 +2233,59 @@ def int8_crossover(cfg, params, device="cuda"):
     return out
 
 
-def device_times(fn, iters: int = 1):
-    """Device time per call of ``fn`` by kernel name, over ``iters`` calls
-    under ``torch.profiler`` (after one warm-up call when ``iters > 1``);
-    empty when the profiler records no device activity.  Only the CUDA
-    activity is traced: the host's ops would add nothing read here and
-    most of the profiler's own time."""
+def device_events(fn, iters: int = 1, pad_s=PROFILE_PAD_S):
+    """The device kernels (``FunctionEvent``) of ``iters`` calls of ``fn``
+    under ``torch.profiler``.  The profiler drops every kernel whose
+    start or end, moved onto the host's clock, falls outside the host's
+    window from start to stop (its log counts them "Out-of-range"), and
+    that move is off by more than a short kernel's length now and then
+    (``profiler_window_losses``).  So the window opens ``pad_s`` before
+    the first call and closes ``pad_s`` after the card has finished."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def profiler_window_losses(windows, pad_s, launches=5):
+    """How many of ``windows`` profiler windows (``device_events`` with
+    ``pad_s``), each around ``launches`` launches of one short kernel (a
+    64 MiB multiply), recorded fewer kernels than were launched."""
+    import torch
+
+    x = torch.ones(1 << 24, device="cuda")
+    x.mul_(2)
+    lost = 0
+    for _ in range(windows):
+        got = device_events(lambda: x.mul_(1.0), launches, pad_s=pad_s)
+        lost += len(got) != launches
+    return lost
+
+
+def device_times(fn, iters: int = 1):
+    """Device time per call of ``fn`` by kernel name, over ``iters`` calls
+    (``device_events``, after one warm-up call when ``iters > 1``); empty
+    when the profiler records no device activity.  Only the CUDA activity
+    is traced: the host's ops would add nothing read here and most of the
+    profiler's own time."""
+    import torch
 
     if not torch.cuda.is_available():  # a rehearsal on the CPU
         return {}
     if iters > 1:
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3 / iters
+    for e in device_events(fn, iters):
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3 / iters
     return by_name
 
 
@@ -2147,14 +2327,18 @@ def profile_decode_window(eng, vocab_size):
             "top_kernels_ms": top}
 
 
-def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ):
-    """``make_llama_trainer(cfg)`` with ``default_optimizer(warmup=1,
-    decay_steps=1000)`` (the JAX bench's) on b=1 random tokens of length
-    ``seq + 1``: two warm-up steps, then ``steps`` timed steps ended by
-    ``synchronize()``, then one step under the profiler (device time by
-    kernel and by class) and one optimizer update alone.  Returns step
-    time, tokens/s, MFU against the bf16 peak, peak memory over the timed
-    steps and the K1/K2/K3 launches of the timed steps."""
+def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ, warmup=2,
+                make_trainer=None, flops=None):
+    """``make_trainer(cfg)`` (default ``make_llama_trainer``) with
+    ``default_optimizer(warmup=1, decay_steps=1000)`` (the JAX bench's) on
+    b=1 random tokens of length ``seq + 1`` from seed 4: ``warmup``
+    warm-up steps, then ``steps`` timed steps ended by ``synchronize()``,
+    then one step under the profiler (device time by kernel and by class)
+    and one optimizer update alone.  Returns step time, tokens/s, MFU of
+    ``flops`` per step (default: the JAX bench's count for a Llama
+    config) against the bf16 peak, peak memory over the timed steps, the
+    K1/K2/K3 launches of the timed steps, and the loss and grad norm of
+    each warm-up step and of the last step."""
     import torch
 
     from ray_tpu_torch.models.training import (default_optimizer,
@@ -2163,7 +2347,7 @@ def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ):
     from ray_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
                                                         flash_attention_fwd)
 
-    tr = make_llama_trainer(cfg, optimizer=default_optimizer(
+    tr = (make_trainer or make_llama_trainer)(cfg, optimizer=default_optimizer(
         warmup=1, decay_steps=1000), device=device)
     t0 = time.perf_counter()
     state = tr.init_state(seed=0)
@@ -2172,10 +2356,11 @@ def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ):
     gen = torch.Generator(device=device).manual_seed(4)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq + 1),
                                      generator=gen, device=device)}
-    losses = []
-    for _ in range(2):  # warm-up: library handles, allocator, kernel build
+    losses, grad_norms = [], []
+    for _ in range(warmup):  # library handles, allocator, kernel build
         state, m = tr.step(state, batch)
         losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention_fwd.launches = 0
@@ -2190,7 +2375,7 @@ def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ):
                 "K2": flash_attention_bwd.dq_launches,
                 "K3": flash_attention_bwd.dkv_launches}
     losses.append(float(m["loss"]))
-    grad_norm = float(m["grad_norm"])
+    grad_norms.append(float(m["grad_norm"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     by_name = device_times(lambda: tr.step(state, batch))
     busy_ms, top = rank_kernels(by_name)
@@ -2206,18 +2391,128 @@ def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ):
     grads = [torch.zeros_like(p) for p in leaves]
     optimizer_ms = cuda_ms(lambda: tr.optimizer.update(
         grads, state["opt_state"], leaves), 2)
-    flops = train_flops_per_step(cfg, 1, seq)
+    if flops is None:
+        flops = train_flops_per_step(cfg, 1, seq)
     return {"step_ms": 1e3 * step_s, "tokens_per_s": seq / step_s,
             "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
             "train_flops_per_step": flops, "peak_memory_gb": peak_gb,
-            "init_s": init_s, "timed_steps": steps, "launches": launches,
+            "init_s": init_s, "warmup_steps": warmup, "timed_steps": steps,
+            "launches": launches,
             "launches_per_step": {n: c / steps for n, c in launches.items()},
-            "losses": losses, "grad_norm": grad_norm,
+            "losses": losses, "grad_norms": grad_norms,
+            "grad_norm": grad_norms[-1],
             "device_busy_ms": busy_ms,
             "idle_share": (1 - busy_ms / (1e3 * step_s) if top
                            else "not measured"),
             "device_ms_by_class": by_class, "optimizer_ms": optimizer_ms,
             "top_kernels_ms": top}
+
+
+def check_train(name, run, per_step):
+    """A train phase's launches per timed step must be ``per_step``, and
+    its losses and grad norms finite."""
+    if run["launches_per_step"] != per_step:
+        raise AssertionError(f"{name}: launches per step "
+                             f"{run['launches_per_step']}, expected "
+                             f"{per_step}")
+    if not all(math.isfinite(x) for x in [*run["losses"],
+                                           *run["grad_norms"]]):
+        raise AssertionError(f"{name}: losses {run['losses']}, grad norms "
+                             f"{run['grad_norms']}")
+
+
+def phase_moe_forward(device="cuda", want_layers=MOE_FORWARD_LAYERS,
+                      seq=SEQ, steps=MOE_FORWARD_STEPS):
+    """``moe_apply`` at Mixtral-8x7B width, bf16 weights from seed 0, on
+    b=1 random tokens of length ``seq``: ``want_layers`` deep, or the
+    deepest depth that leaves ``MOE_RESERVE`` bytes of the card free
+    after the forward's transients (``moe_forward_bytes``, printed with
+    ``mem_get_info`` before anything is allocated).  One warm-up forward,
+    then ``steps`` timed forwards ended by ``synchronize()``, then one
+    under the profiler.  K1 must launch once per layer per forward, and
+    the logits and aux must be finite and of the expected shape."""
+    import torch
+
+    from ray_tpu_torch.models.moe import MoEConfig, moe_apply, moe_init
+    from ray_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+
+    allocated = torch.cuda.memory_allocated()
+    if allocated >= 1e9:
+        raise AssertionError(f"{allocated} bytes still allocated before the "
+                             "MoE weights (the earlier phases must free "
+                             "theirs)")
+    base = dataclasses.replace(MoEConfig.mixtral_8x7b(),
+                               param_dtype=torch.bfloat16)
+    free, total = torch.cuda.mem_get_info()
+    layers = next((n for n in range(want_layers, 0, -1)
+                   if sum(moe_forward_bytes(base, n, seq).values())
+                   + MOE_RESERVE <= free), 0)
+    reckoning = {"phase": "moe_forward_reckoning",
+                 "mem_get_info_free_gb": free / 1e9,
+                 "mem_get_info_total_gb": total / 1e9,
+                 "allocated_gb": allocated / 1e9,
+                 "full_depth_gb": {k: v / 1e9 for k, v in moe_forward_bytes(
+                     base, base.num_layers, seq).items()},
+                 "wanted_layers": want_layers, "layers": layers,
+                 "at_layers_gb": {k: v / 1e9 for k, v in moe_forward_bytes(
+                     base, layers, seq).items()},
+                 "reserve_gb": MOE_RESERVE / 1e9}
+    emit(reckoning)
+    if layers == 0:
+        raise AssertionError(f"no depth of Mixtral-8x7B fits the card: "
+                             f"{json.dumps(reckoning)}")
+    cfg = dataclasses.replace(base, num_layers=layers)
+    t0 = time.perf_counter()
+    params = moe_init(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                           device=device)
+    with torch.no_grad():
+        moe_apply(params, tokens, cfg)  # warm-up: library handles, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, aux = moe_apply(params, tokens, cfg)
+        torch.cuda.synchronize()
+        forward_s = (time.perf_counter() - t0) / steps
+        launches = flash_attention_fwd.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy_ms, top = rank_kernels(device_times(
+            lambda: moe_apply(params, tokens, cfg)))
+    if tuple(logits.shape) != (1, seq, cfg.vocab_size) \
+            or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()) \
+            or not math.isfinite(float(aux)):
+        raise AssertionError(f"MoE forward: logits shape "
+                             f"{tuple(logits.shape)}, dtype {logits.dtype}, "
+                             f"finite {bool(torch.isfinite(logits).all())}, "
+                             f"aux {float(aux)}")
+    if launches != steps * layers:
+        raise AssertionError(f"K1 launched {launches} times in {steps} MoE "
+                             f"forwards of {layers} layers")
+    dense = moe_forward_flops(cfg, 1, seq, cfg.num_experts)
+    active = moe_forward_flops(cfg, 1, seq, cfg.experts_per_token)
+    return {"model": "mixtral_8x7b", "layers": layers,
+            "depth_cut": MOE_FORWARD_CUT if layers == MOE_FORWARD_LAYERS
+            else f"32 → {layers} layers: the deepest that leaves "
+                 f"{MOE_RESERVE / 1e9:.0f} GB free on this card",
+            "weights_gb": sum(t.numel() * t.element_size() for t in
+                              [params["embed"], params["lm_head"],
+                               params["final_norm"],
+                               *params["layers"].values()]) / 1e9,
+            "init_s": init_s, "batch": 1, "seq": seq, "timed_forwards": steps,
+            "forward_ms": 1e3 * forward_s, "tokens_per_s": seq / forward_s,
+            "k1_launches": launches, "k1_launches_per_forward":
+            launches / steps, "peak_memory_gb": peak_gb,
+            "device_busy_ms": busy_ms, "top_kernels_ms": top,
+            "aux": float(aux), "logits_max_abs": float(logits.abs().max()),
+            "dense_dispatch_flops": dense, "active_top2_flops": active,
+            "tflops_by_dense_dispatch_flops": dense / forward_s / 1e12,
+            "tflops_by_active_top2_flops": active / forward_s / 1e12}
 
 
 def main() -> int:
@@ -2229,6 +2524,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
     smi = phase_env()
     k1 = phase_kernels()
@@ -2285,19 +2581,83 @@ def main() -> int:
           "depth_cut": DEPTH_CUT, "batch": 1, "seq": SEQ,
           "remat_policy": train_cfg.remat_policy,
           "params_b": train_cfg.num_params() / 1e9, **train})
-    per_step = train["launches_per_step"]
-    if per_step != {"K1": TRAIN_LAYERS, "K2": TRAIN_LAYERS,
-                    "K3": TRAIN_LAYERS}:
-        raise AssertionError(f"launches per train step {per_step}, expected "
-                             f"{TRAIN_LAYERS} each (save_attn keeps K1's "
-                             "outputs, so the backward must not replay it)")
-    if not all(math.isfinite(x) for x in [*train["losses"],
-                                           train["grad_norm"]]):
-        raise AssertionError(f"train: losses {train['losses']}, grad norm "
-                             f"{train['grad_norm']}")
+    check_train("train", train, {"K1": TRAIN_LAYERS, "K2": TRAIN_LAYERS,
+                                 "K3": TRAIN_LAYERS})
+    # the other policies from the same seed and tokens: the forward does
+    # not depend on the policy, so the first step's loss is bit-equal
+    policies = {}
+    for policy in ("save_attn_mlp", "save_dots"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg_p = dataclasses.replace(train_cfg, remat_policy=policy)
+        run_p = phase_train(cfg_p, steps=POLICY_STEPS, warmup=POLICY_WARMUP)
+        norm_diff = run_p["grad_norms"][0] - train["grad_norms"][0]
+        run_p.update(first_loss_bit_equal_to_save_attn=run_p["losses"][0]
+                     == train["losses"][0],
+                     first_grad_norm_minus_save_attn=norm_diff,
+                     first_grad_norm_rel_diff=abs(norm_diff)
+                     / train["grad_norms"][0])
+        emit({"phase": f"train_{policy}", "model": "llama2_7b",
+              "layers": TRAIN_LAYERS, "depth_cut": DEPTH_CUT, "batch": 1,
+              "seq": SEQ, "remat_policy": policy, **run_p})
+        check_train(f"train_{policy}", run_p,
+                    {"K1": TRAIN_LAYERS * (2 if policy == "save_dots" else 1),
+                     "K2": TRAIN_LAYERS, "K3": TRAIN_LAYERS})
+        if not (run_p["first_loss_bit_equal_to_save_attn"]
+                and run_p["first_grad_norm_rel_diff"] <= 1e-3):
+            raise AssertionError(
+                f"{policy}: first step's loss {run_p['losses'][0]} and grad "
+                f"norm {run_p['grad_norms'][0]}, save_attn's "
+                f"{train['losses'][0]} and {train['grad_norms'][0]} (loss "
+                "bit-equal, grad norm to rtol 1e-3)")
+        policies[policy] = run_p
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_fwd = phase_moe_forward()
+    emit({"phase": "moe_forward", **moe_fwd})
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cfg = dataclasses.replace(
+        MoEConfig.mixtral_8x7b(), num_layers=MOE_TRAIN_LAYERS,
+        param_dtype=torch.float32, dtype=torch.bfloat16)
+    # FLOPs per step as the JAX bench counts them (forward and backward,
+    # 3x the forward; the replay not counted), by dense dispatch and by
+    # the active top-2 experts
+    moe_train = phase_train(
+        moe_cfg, make_trainer=make_moe_trainer,
+        flops=3 * moe_forward_flops(moe_cfg, 1, SEQ, moe_cfg.num_experts))
+    active = 3 * moe_forward_flops(moe_cfg, 1, SEQ,
+                                   moe_cfg.experts_per_token)
+    emit({"phase": "moe_train", "model": "mixtral_8x7b",
+          "layers": MOE_TRAIN_LAYERS, "depth_cut": MOE_TRAIN_CUT,
+          "batch": 1, "seq": SEQ, "remat": "full (the reference's)",
+          "params_b": moe_cfg.num_params() / 1e9,
+          "train_flops_active_top2": active,
+          "mfu_by_active_top2_flops": active * moe_train["tokens_per_s"]
+          / SEQ / PEAK_FLOPS["bfloat16"], **moe_train})
+    check_train("moe_train", moe_train, {"K1": 2 * MOE_TRAIN_LAYERS,
+                                         "K2": MOE_TRAIN_LAYERS,
+                                         "K3": MOE_TRAIN_LAYERS})
 
     main_case = k1["main_path"]
     row1, bwd = main_case["k1"], main_case["bwd"]
+    gqa1, gqa_bwd = k1["mixtral_gqa"]["k1"], k1["mixtral_gqa"]["bwd"]
+    train_paths = {"train": train, "moe_train": moe_train,
+                   **{f"train_{p}": r for p, r in policies.items()}}
+
+    def by_path(name):
+        return {path: run["launches"][name]
+                for path, run in train_paths.items()}
+
+    def gqa_bwd_row(kname):
+        return {"ms": gqa_bwd[f"{kname}_ms"],
+                "bound_ms": gqa_bwd[f"{kname}_bound_ms"],
+                "bound_by": gqa_bwd[f"{kname}_bound_by"],
+                "bound_share": gqa_bwd[f"{kname}_bound_share"],
+                "plain_ms": gqa_bwd["plain_ms"],
+                "library_ms": gqa_bwd["library_ms"]}
+
     source = "ray_tpu_torch/ops/cuda/csrc/"
     replaces = "ray_tpu/ops/pallas/flash_attention.py:"
     emit({"kernels": [
@@ -2307,28 +2667,39 @@ def main() -> int:
          "launches_by_path": {"forward": fwd["k1_launches"],
                               "serve": serve["k1_launches"],
                               "disagg": disagg["k1_launches"],
-                              "train": train["launches"]["K1"]},
+                              "moe_forward": moe_fwd["k1_launches"],
+                              **by_path("K1")},
          "max_abs_err": row1["max_abs_err"], "ms": row1["ms"],
          "plain_ms": row1["plain_ms"], "bound_ms": row1["bound_ms"],
          "bound_by": row1["bound_by"], "library_ms": row1["library_ms"],
-         "tflops": row1["tflops"], "bound_share": row1["bound_share"]},
+         "tflops": row1["tflops"], "bound_share": row1["bound_share"],
+         "mixtral_gqa": {k: gqa1[k] for k in (
+             "max_abs_err", "ms", "bound_ms", "bound_by", "bound_share",
+             "plain_ms", "library_ms")}},
         {"name": "K2 flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "195",
          "design": bwd["k2_design"], "launches": train["launches"]["K2"],
+         "launches_by_path": by_path("K2"),
          "max_abs_err": bwd["dq_max_abs_err"],
          "dq_flipped_vs_exact": bwd["dq_flipped_vs_exact"],
          "ms": bwd["k2_ms"],
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["k2_bound_ms"],
          "bound_by": bwd["k2_bound_by"], "library_ms": bwd["library_ms"],
-         "tflops": bwd["k2_tflops"], "bound_share": bwd["k2_bound_share"]},
+         "tflops": bwd["k2_tflops"], "bound_share": bwd["k2_bound_share"],
+         "mixtral_gqa": {"max_abs_err": gqa_bwd["dq_max_abs_err"],
+                         **gqa_bwd_row("k2")}},
         {"name": "K3 flash_bwd_dkv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "232",
          "launches": train["launches"]["K3"],
+         "launches_by_path": by_path("K3"),
          "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
          "ms": bwd["k3_ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["k3_bound_ms"], "bound_by": bwd["k3_bound_by"],
          "library_ms": bwd["library_ms"],
-         "tflops": bwd["k3_tflops"], "bound_share": bwd["k3_bound_share"]},
+         "tflops": bwd["k3_tflops"], "bound_share": bwd["k3_bound_share"],
+         "mixtral_gqa": {"max_abs_err": max(gqa_bwd["dk_max_abs_err"],
+                                            gqa_bwd["dv_max_abs_err"]),
+                         **gqa_bwd_row("k3")}},
         {"name": "K4 remote_copy", "route": "cuda",
          "source": source + "remote_copy.cu",
          "replaces": "ray_tpu/experimental/channel/transport.py:285",

@@ -1,4 +1,5 @@
-"""Weights carried across between the JAX Llama pytree and the port.
+"""Weights carried across between the JAX Llama and MoE pytrees and the
+port.
 
 The JAX side is handed over as numpy arrays (``np.asarray`` of each leaf);
 the port keeps the same layout (``x @ W`` weights, layers stacked
@@ -18,6 +19,7 @@ import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.llama import LlamaConfig
+from ray_tpu_torch.models.moe import MoEConfig
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
@@ -42,7 +44,8 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
                     device=None) -> Dict[str, Any]:
-    """The port's params from a JAX ``llama_init`` pytree of numpy arrays.
+    """The port's params from a JAX ``llama_init`` or ``moe_init`` pytree
+    of numpy arrays.
     Per-layer lists (``scan_layers=False``) are stacked to ``[L, ...]``."""
     dev = resolve_device(device)
     layers = tree["layers"]
@@ -62,9 +65,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
 def params_to_jax(params: Dict[str, Any], cfg: LlamaConfig
                   ) -> Dict[str, Any]:
     """Inverse of ``params_from_jax``: a pytree of numpy arrays in the
-    JAX layout for ``cfg.scan_layers``."""
+    JAX layout for ``cfg``: per-layer lists for a Llama tree with
+    ``scan_layers=False``, else stacked (JAX's ``moe_init`` always
+    stacks)."""
     layers = {k: _to_numpy(v) for k, v in params["layers"].items()}
-    if not cfg.scan_layers:
+    if not cfg.scan_layers and not isinstance(cfg, MoEConfig):
         layers = [{k: v[i] for k, v in layers.items()}
                   for i in range(cfg.num_layers)]
     out = {"embed": _to_numpy(params["embed"]), "layers": layers,

@@ -23,7 +23,7 @@ import functools
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import resolve_device
@@ -31,7 +31,7 @@ from ray_tpu_torch.ops.attention import dot_product_attention
 # registers the op ray_tpu_torch::flash_attention that save_attn keeps
 from ray_tpu_torch.ops.cuda import flash_attention as _flash  # noqa: F401
 from ray_tpu_torch.ops.layers import (apply_rope, rms_norm, rope_frequencies,
-                                      swiglu)
+                                      swiglu_op)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +50,9 @@ class LlamaConfig:
     # under autograd: False (autograd keeps every activation), or a policy.
     # "full": each layer keeps only its input and is replayed in the
     # backward; "save_attn": also keeps the flash op's outputs (out, lse),
-    # so the backward replays the layer without K1.
+    # so the backward replays the layer without K1; "save_attn_mlp": also
+    # keeps the swiglu output; "save_dots": keeps the outputs of the
+    # products without batch dims (x @ W) and replays the rest, K1 too.
     remat: bool = True
     remat_policy: str = "save_attn"
     # the JAX pytree's layer layout: stacked [L, ...] (True) or a list of
@@ -184,11 +186,12 @@ def lm_head(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ head.float()
 
 
-def _decoder_layer(x, lp, *, cfg: LlamaConfig, cos, sin):
+def attention_block(x, lp, cfg: LlamaConfig, cos, sin, window=None):
+    """The attention half of a decoder layer: ``x`` plus causal attention
+    of ``rms_norm(x)`` (keys in ``window``, None = all) through ``wo``."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = cfg.dtype
-    # Attention block.
     y = rms_norm(x, lp["attn_norm"])
     q = (y @ lp["wq"].to(dt)).reshape(b, s, cfg.num_heads, hd)
     k = (y @ lp["wk"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
@@ -196,46 +199,57 @@ def _decoder_layer(x, lp, *, cfg: LlamaConfig, cos, sin):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = dot_product_attention(q, k, v, causal=True,
-                                 impl=cfg.attention_impl,
-                                 window=cfg.sliding_window)
-    x = x + attn.reshape(b, s, cfg.num_heads * hd) @ lp["wo"].to(dt)
-    # MLP block.
+                                 impl=cfg.attention_impl, window=window)
+    return x + attn.reshape(b, s, cfg.num_heads * hd) @ lp["wo"].to(dt)
+
+
+def _decoder_layer(x, lp, *, cfg: LlamaConfig, cos, sin):
+    x = attention_block(x, lp, cfg, cos, sin, cfg.sliding_window)
+    dt = cfg.dtype
     y = rms_norm(x, lp["mlp_norm"])
-    act = swiglu(y @ lp["w_gate"].to(dt), y @ lp["w_up"].to(dt))
+    act = swiglu_op(y @ lp["w_gate"].to(dt), y @ lp["w_up"].to(dt))
     return x + act @ lp["w_down"].to(dt)
 
 
-def _save_flash_outputs(ctx, func, *args, **kwargs):
-    """Selective-checkpoint policy of ``save_attn``: keep the flash op's
-    ``(out, lse)`` (JAX's ``attn_out``/``flash_out``/``flash_lse``) and
-    recompute everything else."""
-    if func is torch.ops.ray_tpu_torch.flash_attention.default:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
+# The ops whose outputs each selective policy keeps; autograd replays the
+# rest of the layer.  JAX names them: "save_attn" keeps the flash op's
+# (out, lse) (``attn_out``/``flash_out``/``flash_lse``), "save_attn_mlp"
+# also the swiglu output (``mlp_act``), and "save_dots" is
+# ``dots_with_no_batch_dims_saveable``: the ``x @ W`` products, which
+# dispatch as ``aten.mm``, and not the batched ``aten.bmm`` of the
+# reference attention nor the flash op.
+_SAVED_OPS = {
+    "save_attn": [torch.ops.ray_tpu_torch.flash_attention.default],
+    "save_attn_mlp": [torch.ops.ray_tpu_torch.flash_attention.default,
+                      torch.ops.ray_tpu_torch.swiglu.default],
+    "save_dots": [torch.ops.aten.mm.default],
+}
 
 
 def layer_remat(cfg: LlamaConfig) -> Optional[Callable]:
     """How a decoder layer runs under autograd: ``None`` when remat is off,
     else ``remat(layer_fn, x, lp)`` under the config's policy (JAX's
-    ``jax.checkpoint`` policies in ``llama_apply``).  Raises for a policy
-    this port does not have yet."""
+    ``jax.checkpoint`` policies in ``llama_apply``)."""
     if not cfg.remat:
         return None
     if cfg.remat_policy == "full":
         return functools.partial(checkpoint, use_reentrant=False)
-    if cfg.remat_policy == "save_attn":
+    if cfg.remat_policy in _SAVED_OPS:
         return functools.partial(
             checkpoint, use_reentrant=False,
             context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _save_flash_outputs))
-    if cfg.remat_policy in ("save_attn_mlp", "save_dots"):
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} comes with a later slice of "
-            "the port (ROADMAP Queue 1, item 2); this one has False, 'full' "
-            "and 'save_attn'")
+                                         _SAVED_OPS[cfg.remat_policy]))
     raise ValueError(
         f"remat_policy must be 'full', 'save_attn', 'save_attn_mlp' or "
         f"'save_dots', got {cfg.remat_policy!r}")
+
+
+def records_grad(params) -> bool:
+    """Whether autograd records a forward of ``params``: grad mode on and
+    params that require grad (a train step, not serving)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in [params["embed"],
+                                  *params["layers"].values()])
 
 
 def llama_apply(params: Dict[str, Any], tokens: torch.Tensor,
@@ -252,13 +266,18 @@ def llama_apply(params: Dict[str, Any], tokens: torch.Tensor,
                                 device=tokens.device)
     x = embed_tokens(params, tokens, cfg)
     layer = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin)
-    training = torch.is_grad_enabled() and any(
-        t.requires_grad for t in [params["embed"],
-                                  *params["layers"].values()])
-    remat = layer_remat(cfg) if training else None
+    remat = layer_remat(cfg) if records_grad(params) else None
     for _, lp in stacked_layers(params):
         x = layer(x, lp) if remat is None else remat(layer, x, lp)
     return lm_head(params, cfg, x)
+
+
+def next_token_nll(logits: torch.Tensor,
+                   tokens: torch.Tensor) -> torch.Tensor:
+    """Per-position cross-entropy [b, s - 1] in fp32 of ``logits`` (of
+    ``tokens[:, :-1]``) against the next tokens ``tokens[:, 1:]``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
 
 
 def llama_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
@@ -267,9 +286,7 @@ def llama_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     optional 'mask' [b, s] (1 = contribute to the loss)."""
     tokens = batch["tokens"]
     logits = llama_apply(params, tokens[:, :-1], cfg, mesh=mesh)
-    targets = tokens[:, 1:].long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    nll = next_token_nll(logits, tokens)
     mask = batch.get("mask")
     if mask is not None:
         mask = mask[:, 1:].float()

@@ -189,7 +189,7 @@ class Trainer:
 def make_llama_trainer(cfg, mesh=None, *, optimizer: Optional[AdamW] = None,
                        accum_steps: int = 1, device=None) -> Trainer:
     """A ``Trainer`` for ``ray_tpu_torch.models.llama``.  Raises at once
-    for a remat policy this port does not have yet."""
+    for an unknown remat policy."""
     from ray_tpu_torch.models.llama import (layer_remat, llama_init,
                                             llama_loss)
 

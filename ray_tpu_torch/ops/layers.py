@@ -1,7 +1,10 @@
 """Elementwise/norm/rotary building blocks (plain PyTorch, no kernels).
 
 Counterpart of ``ray_tpu/ops/layers.py``: computation in fp32 and cast
-back, split-halves rotary, fp32 SwiGLU gate.
+back, split-halves rotary, fp32 SwiGLU gate.  ``swiglu_op`` is
+``swiglu`` as one op to the dispatcher (``ray_tpu_torch::swiglu``), so
+that a remat policy can keep its output by name, as JAX's keeps
+``mlp_act``; the serving paths, which record no graph, call ``swiglu``.
 """
 
 from __future__ import annotations
@@ -60,3 +63,38 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """SwiGLU activation: silu(gate) * up, with an fp32 sigmoid gate."""
     g = gate.float()
     return (g * torch.reciprocal(1.0 + torch.exp(-g))).to(gate.dtype) * up
+
+
+@torch.library.custom_op("ray_tpu_torch::swiglu", mutates_args=())
+def swiglu_op(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``swiglu`` as one differentiable op, bit-equal to it forward and
+    backward (the backward repeats autograd's chain through ``swiglu``
+    step by step, in the same order)."""
+    return swiglu(gate, up)
+
+
+@swiglu_op.register_fake
+def _swiglu_fake(gate, up):
+    return torch.empty(torch.broadcast_shapes(gate.shape, up.shape),
+                       dtype=torch.promote_types(gate.dtype, up.dtype),
+                       device=gate.device)
+
+
+def _swiglu_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _swiglu_backward(ctx, grad):
+    gate, up = ctx.saved_tensors
+    g = gate.float()
+    e = torch.exp(-g)
+    r = torch.reciprocal(1.0 + e)
+    d_up = grad * (g * r).to(gate.dtype)
+    d_act = (grad * up).float()
+    # d/dg of g * r(g): r directly, plus g * r^2 * e through 1 / (1 + e)
+    d_gate = d_act * r + d_act * g * (r * r) * e
+    return d_gate.to(gate.dtype), d_up
+
+
+swiglu_op.register_autograd(_swiglu_backward,
+                            setup_context=_swiglu_setup_context)

@@ -209,9 +209,6 @@ def test_bwd_dq_kernel_design_by_dtype_on_card(dtype, design, other):
     no launch falls back to the other design."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K2 has no CPU or interpret mode")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def randn(*shape):
@@ -220,13 +217,8 @@ def test_bwd_dq_kernel_design_by_dtype_on_card(dtype, design, other):
     q, k, v, do = (randn(1, 256, 4, 128), randn(1, 256, 2, 128),
                    randn(1, 256, 2, 128), randn(1, 256, 4, 128))
     out, lse = flash.flash_attention_fwd(q, k, v)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        flash.flash_attention_bwd(q, k, v, out, lse, do)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    names = _cuda_kernels(lambda: flash.flash_attention_bwd(q, k, v, out,
+                                                             lse, do))
     assert len([n for n in names if design in n]) == 1, names
     assert not [n for n in names if other in n], names
 
@@ -370,16 +362,23 @@ def _edge_counts(stage, sms):
 
 
 def _cuda_kernels(fn):
-    """The names of the device kernels one call of ``fn`` ran."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """The names of the device kernels one call of ``fn`` ran, by
+    ``chip_smoke.device_events`` (a profiler window held open around the
+    call, so that no kernel falls outside it)."""
+    return [e.name for e in _chip_smoke().device_events(fn)]
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+@pytest.mark.gpu
+def test_profiler_windows_keep_every_kernel_on_card():
+    """Every one of 100 profiler windows opened as ``chip_smoke.py`` opens
+    them (``device_events``: held open ``PROFILE_PAD_S`` either side of
+    the calls) records all five launches of a short kernel; without the
+    pad the profiler drops, now and then, kernels its clock moves out of
+    the window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the profiler traces the card")
+    smoke = _chip_smoke()
+    assert smoke.profiler_window_losses(100, smoke.PROFILE_PAD_S) == 0
 
 
 @pytest.mark.gpu
@@ -518,3 +517,71 @@ def test_serving_options_exact_in_fp32_on_card(check):
     smoke = _chip_smoke()
     cfg, params = smoke.small_model("cuda")
     smoke.SERVING_OPTION_CHECKS[check](cfg, params, "cuda")
+
+
+@pytest.mark.gpu
+def test_moe_forward_and_train_steps_match_cpu_on_card():
+    """``chip_smoke.py``'s small fp32 MoE (head_dim 64, 4 experts, top-2,
+    s=300, flash attention) on the card against the plain path on the
+    CPU, raising on a mismatch: the forward's logits and aux, then two
+    trainer steps (the first runs at lr 0, so the second is the first
+    that moves the params), with K1 once per layer in the forward and
+    K1/K2/K3 twice/once/once per layer per step under the full remat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the MoE's attention runs K1-K3 on "
+                    "the card")
+    out = _chip_smoke().small_moe_reference("cuda", steps=2)
+    assert out["forward_k1_launches"] == 2
+
+
+@pytest.mark.gpu
+def test_moe_router_ties_on_card():
+    """With an all-zero router every probability is 1/E and, as
+    ``jax.lax.top_k`` does, the port routes every token to experts 0 and
+    1 on CUDA too (``torch.topk`` promises no order among equal values);
+    the top-1 share is then all expert 0, so the aux is E * 1/E = 1.  On
+    values with many ties the CUDA pick equals the CPU's, which
+    ``test_torch_moe.py`` holds to JAX's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the tie order of CUDA's sort")
+    from ray_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig.tiny_moe(dtype=torch.float32)
+    lp = {k: v[0] for k, v in moe.moe_init(cfg, device="cuda")[
+        "layers"].items()}
+    lp["w_router"].zero_()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, 300, cfg.hidden_size, generator=gen, device="cuda")
+    probs = torch.softmax(x @ lp["w_router"], dim=-1)
+    idx = moe.top_k(probs, cfg.experts_per_token)[1]
+    assert bool((idx == torch.tensor([0, 1], device="cuda")).all())
+    out, aux = moe.moe_block(x, lp, cfg)
+    assert float(aux) == 1.0 and bool(torch.isfinite(out).all())
+    levels = torch.randint(0, 3, (4096, 8), generator=gen,
+                           device="cuda").float()
+    for k in (1, 2, 3):
+        assert torch.equal(moe.top_k(levels, k)[1].cpu(),
+                           moe.top_k(levels.cpu(), k)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_op_autograd_on_card(dtype):
+    """The op ``ray_tpu_torch::swiglu`` on CUDA: its output and, through
+    its registered backward, its grads bit-equal to autograd through the
+    function it wraps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the op's CUDA arithmetic")
+    from ray_tpu_torch.ops import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    gate, up, grad = (torch.randn(2, 300, 512, generator=gen, device="cuda")
+                      .mul(scale).to(dtype) for scale in (4.0, 1.0, 1.0))
+    outs = []
+    for fn in (layers.swiglu, layers.swiglu_op):
+        g, u = gate.clone().requires_grad_(), up.clone().requires_grad_()
+        out = fn(g, u)
+        out.backward(grad)
+        outs.append((out.detach(), g.grad, u.grad))
+    for a, b in zip(*outs):
+        assert a.dtype == dtype and a.is_cuda and torch.equal(a, b)

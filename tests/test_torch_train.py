@@ -7,6 +7,7 @@ come from numpy seeds.  Float32 throughout; each tolerance states its
 reason.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -15,6 +16,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import llama as jllama
 from ray_tpu.models import training as jtraining
@@ -22,6 +24,7 @@ from ray_tpu.parallel import MeshConfig, create_mesh
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models import training as ttraining
 from ray_tpu_torch.models.convert import params_from_jax, params_to_jax
+from ray_tpu_torch.ops import layers as tlayers
 from ray_tpu_torch.ops.cuda import flash_attention as tflash
 
 torch.set_num_threads(1)
@@ -86,15 +89,46 @@ def test_llama_loss_and_grads_match_jax(impl, masked):
                                    rtol=RTOL_GRAD, err_msg=str(path))
 
 
+def _count_eqns(jaxpr, name):
+    """Equations of primitive ``name`` in ``jaxpr`` and its sub-jaxprs."""
+    n = 0
+    for eqn in jaxpr.eqns:
+        n += eqn.primitive.name == name
+        for param in eqn.params.values():
+            for sub in (param if isinstance(param, (list, tuple))
+                        else [param]):
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    n += _count_eqns(inner, name)
+    return n
+
+
+def _jax_grad_jaxpr(jcfg, tree, batch):
+    """The jaxpr of JAX's Llama loss grad, its layers unrolled
+    (``scan_layers=False``, a per-layer list of the stacked ``tree``), so
+    that each layer's equations count."""
+    jcfg = dataclasses.replace(jcfg, scan_layers=False)
+    layers = [{k: v[i] for k, v in tree["layers"].items()}
+              for i in range(jcfg.num_layers)]
+    return jax.make_jaxpr(jax.grad(lambda p: jllama.llama_loss(
+        p, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)))(
+        jax.tree.map(jnp.asarray, {**tree, "layers": layers})).jaxpr
+
+
 @pytest.mark.parametrize("remat,policy,flash_fwd_calls", [
     (False, "save_attn", 1), ("full", "full", 2),
-    ("save_attn", "save_attn", 1)])
+    ("save_attn", "save_attn", 1), ("save_attn_mlp", "save_attn_mlp", 1),
+    ("save_dots", "save_dots", 2)])
 def test_remat_policies_same_grads_and_flash_calls(monkeypatch, remat,
                                                    policy, flash_fwd_calls):
     """The same grads under each policy, and the flash forward runs once
-    per layer per step under ``save_attn`` (its saved out/lse stand in for
-    a replay) and twice under ``full``.  The port's recompute repeats the
-    same CPU arithmetic, so the grads agree to the last bit."""
+    per layer per step under ``save_attn`` and ``save_attn_mlp`` (their
+    saved out/lse stand in for a replay) and twice under ``full`` and
+    ``save_dots`` (which saves products only), as many times as JAX's
+    jaxpr of the same grad holds a forward ``pallas_call`` (counted
+    through nested jaxprs; a backward is two, dq and dkv).  The port's
+    recompute repeats the same CPU arithmetic, so the grads agree to the
+    last bit."""
     calls = {"fwd": 0, "bwd": 0}
     plain_fwd, plain_bwd = (tflash.flash_attention_plain,
                             tflash.flash_attention_bwd_plain)
@@ -118,8 +152,91 @@ def test_remat_policies_same_grads_and_flash_calls(monkeypatch, remat,
     _, got = _loss_and_grads(tcfg, tree, batch)
     L = tcfg.num_layers
     assert calls == {"fwd": flash_fwd_calls * L, "bwd": L}
+    jcfg = dataclasses.replace(jcfg, remat=bool(remat), remat_policy=policy)
+    assert _count_eqns(_jax_grad_jaxpr(jcfg, tree, batch), "pallas_call") \
+        == (flash_fwd_calls + 2) * L
     for a, w in zip(ttraining.tree_leaves(got), ttraining.tree_leaves(want)):
         torch.testing.assert_close(a.grad, w.grad, atol=0, rtol=0)
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the ops that run below autograd, by overload."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _ops_by_pass(tcfg, tree, batch):
+    """``{op: count}`` of the forward and of the backward of one loss."""
+    params = params_from_jax(tree, tcfg, device="cpu")
+    for t in ttraining.tree_leaves(params):
+        t.requires_grad_(True)
+    with _CountOps() as fwd:
+        loss = tllama.llama_loss(params, _torch_batch(batch), tcfg)
+    with _CountOps() as bwd:
+        loss.backward()
+    return fwd.counts, bwd.counts
+
+
+def test_remat_policies_replay():
+    """What each policy replays in the backward, counted by op: the swiglu
+    op once per layer under ``full``, ``save_attn`` and ``save_dots`` and
+    never under ``save_attn_mlp``, which keeps its output; the ``x @ W``
+    products (``aten.mm``) never under ``save_dots``, which keeps them,
+    and six per layer under the other three (q, k, v, o, gate and up; no
+    backward needs the down product's output), as many as JAX's jaxpr of
+    the same grad adds over ``remat=False`` under ``save_attn``.
+    ``save_attn_mlp`` replays gate and up too, in JAX as in the port:
+    swiglu's backward needs its inputs."""
+    jcfg, base = _configs(attention_impl="flash", num_layers=3)
+    tree, batch = _jax_params(jcfg), _batch(jcfg, seed=1)
+    mm, swiglu = torch.ops.aten.mm.default, torch.ops.ray_tpu_torch.swiglu \
+        .default
+    _, plain_bwd = _ops_by_pass(dataclasses.replace(base, remat=False), tree,
+                                batch)
+    L, replayed = base.num_layers, {}
+    for policy in ("full", "save_attn", "save_attn_mlp", "save_dots"):
+        fwd, bwd = _ops_by_pass(dataclasses.replace(base,
+                                                    remat_policy=policy),
+                                tree, batch)
+        assert fwd[swiglu] == L
+        replayed[policy] = {"swiglu": bwd[swiglu],
+                            "mm": bwd[mm] - plain_bwd[mm]}
+    assert {p: r["swiglu"] for p, r in replayed.items()} == {
+        "full": L, "save_attn": L, "save_attn_mlp": 0, "save_dots": L}
+    assert {p: r["mm"] for p, r in replayed.items()} == {
+        "full": 6 * L, "save_attn": 6 * L, "save_attn_mlp": 6 * L,
+        "save_dots": 0}
+    dots = {policy: _count_eqns(_jax_grad_jaxpr(dataclasses.replace(
+        jcfg, remat=policy is not None, remat_policy=policy or "save_attn"),
+        tree, batch), "dot_general")
+        for policy in (None, "save_attn", "save_attn_mlp")}
+    assert dots["save_attn"] - dots[None] == 6 * L
+    assert dots["save_attn_mlp"] == dots["save_attn"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_op_bit_equal_to_swiglu(dtype):
+    """The op ``ray_tpu_torch::swiglu`` against the function it wraps:
+    the same output and, through autograd, the same grads, bit for bit
+    (its backward repeats autograd's chain in the same order)."""
+    rng = np.random.default_rng(5)
+    gate, up, grad = (torch.from_numpy(rng.standard_normal((3, 7, 96))
+                                       .astype(np.float32) * scale).to(dtype)
+                      for scale in (4.0, 1.0, 1.0))
+    outs = []
+    for fn in (tlayers.swiglu, tlayers.swiglu_op):
+        g, u = gate.clone().requires_grad_(), up.clone().requires_grad_()
+        out = fn(g, u)
+        out.backward(grad)
+        outs.append((out.detach(), g.grad, u.grad))
+    for a, b in zip(*outs):
+        assert a.dtype == dtype and torch.equal(a, b)
 
 
 def test_schedule_matches_optax():
@@ -230,17 +347,16 @@ def test_trainer_device_none_needs_cuda(monkeypatch):
         ttraining.make_llama_trainer(tcfg, mesh=object(), device="cpu")
 
 
-def test_unported_remat_policies_raise():
+def test_unknown_remat_policy_raises():
+    """Every policy of the reference runs; another name raises with the
+    reference's wording, from the trainer at once and from the loss."""
     _, tcfg = _configs()
-    for policy in ("save_dots", "save_attn_mlp"):
-        cfg = dataclasses.replace(tcfg, remat_policy=policy)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ttraining.make_llama_trainer(cfg, device="cpu")
-        params = tllama.llama_init(cfg, device="cpu")
-        params["embed"].requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tllama.llama_loss(params, {"tokens": torch.zeros(
-                1, 5, dtype=torch.long)}, cfg)
+    cfg = dataclasses.replace(tcfg, remat_policy="nothing")
+    with pytest.raises(ValueError, match="remat_policy must be 'full', "
+                       "'save_attn', 'save_attn_mlp' or 'save_dots'"):
+        ttraining.make_llama_trainer(cfg, device="cpu")
+    params = tllama.llama_init(cfg, device="cpu")
+    params["embed"].requires_grad_(True)
     with pytest.raises(ValueError, match="remat_policy must be"):
-        ttraining.make_llama_trainer(
-            dataclasses.replace(tcfg, remat_policy="nothing"), device="cpu")
+        tllama.llama_loss(params, {"tokens": torch.zeros(
+            1, 5, dtype=torch.long)}, cfg)
