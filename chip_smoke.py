@@ -5,6 +5,9 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py mesh4`` runs only the ``env`` phase and the
+four-card ``mesh4`` phase below, on a machine with four or more cards.)
+
 Phases, each printing one JSON line:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch, CUDA
@@ -49,7 +52,8 @@ Phases, each printing one JSON line:
    train steps (K1/K2/K3 under ``save_attn``) against the same steps
    through the plain versions on the CPU, and a small MoE (4 experts,
    top-2) held alike: its forward, then three train steps under its full
-   remat.
+   remat; and the three train steps again through a world-1 NCCL mesh
+   (the params DTensors) against the plain path on the CPU.
 4. ``channel``: a device-tier edge between two processes.  This process
    writes ten 16 MiB bf16 activations (and a step counter) through
    ``make_edge_transport``; a reader started with ``spawn`` on the same
@@ -98,6 +102,21 @@ Phases, each printing one JSON line:
    bf16 activations, ``save_attn``) takes two warm-up and three timed
    steps on b=1, s=2048 random tokens; K1, K2 and K3 must each launch
    once per layer per step, and loss and grad norm must be finite.
+10b. ``mesh``: the ``train`` phase's step through the parallel layer: a
+   world-1 NCCL process group, ``create_mesh(MESH_PRESETS["fsdp"])`` and
+   ``make_llama_trainer(cfg, mesh)`` at the same width, depth, policy,
+   seed and tokens, one warm-up and two timed steps.  The params must be
+   DTensors, K1, K2 and K3 must each launch once per layer per step, and
+   the first loss must be within rtol 1e-3 of ``train``'s (whether the
+   two are bit-equal is printed); wall, busy ms, idle share and peak
+   memory are printed beside ``train``'s.
+10c. ``mesh4`` (only with four or more cards): four NCCL ranks, one per
+   card, spawned and joined with a timeout: ``make_llama_trainer`` at
+   Llama-2-7B's full 32 layers on ``fsdp=4`` (one row of s=2048 per
+   rank) and on ``fsdp=2 x tp=2``, one warm-up and two timed steps each,
+   K1/K2/K3 launching once per layer per step on every rank; then
+   ``ring_attention`` over ``sp=4`` at s=8192 (bf16, 32 heads, d=128)
+   against K1 on the whole sequence, to K1's bf16 forward tolerance.
 11. ``train_save_attn_mlp`` and ``train_save_dots``: the same train step
    under the other two remat policies, from the same seed and tokens (one
    warm-up and two timed steps each): K1 launches once per layer per
@@ -129,6 +148,7 @@ CUDA, or without the package beside it, the script exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -166,6 +186,15 @@ DEPTH_CUT = ("32 → 16 layers: fp32 params + AdamW state of the full depth "
 # the Llama train step under the other remat policies (same width, depth,
 # batch, seed and tokens as train): warm-up and timed steps
 POLICY_WARMUP, POLICY_STEPS = 1, 2
+# the mesh phase (the train step through a world-1 mesh): warm-up and
+# timed steps; mesh4: ranks, the ring's sequence, and the seconds the
+# ranks get before they are killed
+MESH_WARMUP, MESH_STEPS = 1, 2
+MESH4_RANKS = 4
+MESH4_MESHES = {"fsdp4": {"dp": 1, "fsdp": 4},
+                "fsdp2_tp2": {"dp": 1, "fsdp": 2, "tp": 2}}
+MESH4_RING_SEQ = 8192
+MESH4_TIMEOUT_S = 600
 # Mixtral-8x7B: the forward in bf16 weights, and the train step in fp32
 # params + AdamW; the forward keeps MOE_RESERVE bytes of the card free
 MOE_FORWARD_LAYERS = 24
@@ -1263,6 +1292,7 @@ def phase_small_reference(device="cuda"):
     return {"forward_k1_vs_ref_max_abs": fwd_err,
             "engine_tokens_checked": sum(len(o.token_ids) for o in outs),
             "serving_options": options, **small_train_reference(device),
+            "mesh": small_mesh_reference(device),
             "moe": small_moe_reference(device)}
 
 
@@ -1612,9 +1642,11 @@ def _launch_counts():
             flash_attention_bwd.dkv_launches)
 
 
-def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps):
+def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps,
+                 make_reference=None):
     """``steps`` fp32 train steps of ``make_trainer(cfg)`` from ``params``
-    on ``device`` and through the plain versions on the CPU, from the same
+    on ``device`` and of ``make_reference(cfg)`` (default the same
+    function) through the plain versions on the CPU, from the same
     weights and tokens.  Loss to rtol 1e-5 and grad norm to 1e-4 (fp32
     sums in another order).  Params: the difference of the two updates
     has at most 1e-3 of the update's L2 norm, and no element differs by
@@ -1630,9 +1662,10 @@ def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps):
     from ray_tpu_torch.models.training import default_optimizer, tree_leaves
 
     opt = default_optimizer(lr=1e-3, warmup=1, decay_steps=10)
-    runs = {}
-    for dev in (device, "cpu"):
-        tr = make_trainer(cfg, optimizer=opt, device=dev)
+    runs = []
+    for make, dev in ((make_trainer, device),
+                      (make_reference or make_trainer, "cpu")):
+        tr = make(cfg, optimizer=opt, device=dev)
         state = tr.init_state(params=copy.deepcopy(params))
         counts = _launch_counts()
         metrics = []
@@ -1641,9 +1674,9 @@ def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps):
             metrics.append([float(m["loss"]), float(m["grad_norm"])])
         launched = [now - before for now, before in zip(_launch_counts(),
                                                         counts)]
-        runs[dev] = (metrics, [t.detach().cpu() for t in
-                               tree_leaves(state["params"])], launched)
-    (got, got_p, launched), (want, want_p, _) = runs[device], runs["cpu"]
+        runs.append((metrics, [full_tensor(t).cpu() for t in
+                               tree_leaves(state["params"])], launched))
+    (got, got_p, launched), (want, want_p, _) = runs
     loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, want))
     norm_err = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, want))
     param_err = max(float((a - b).abs().max()) for a, b in zip(got_p, want_p))
@@ -1664,6 +1697,12 @@ def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps):
             "train_params_max_abs_err": param_err,
             "train_update_rel_l2_err": update_err,
             "train_k1_k2_k3_launches": launched}
+
+
+def full_tensor(t):
+    """A tensor's global value, detached: a DTensor's gathered whole."""
+    t = t.detach()
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def small_train_reference(device="cuda", steps=3):
@@ -2282,11 +2321,93 @@ def device_times(fn, iters: int = 1):
         return {}
     if iters > 1:
         fn()
+    return by_kernel_name(device_events(fn, iters), iters)
+
+
+def by_kernel_name(events, iters: int = 1):
+    """Device ms per call by kernel name of ``events``, over ``iters``
+    calls."""
     by_name = {}
-    for e in device_events(fn, iters):
+    for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3 / iters
     return by_name
+
+
+def union_ms(events):
+    """The ms in which at least one of ``events`` ran, on any stream: the
+    length of the union of their intervals, so kernels that run at once
+    on two streams count once."""
+    total, end = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if end is None or start > end:
+            total, end = total + stop - start, stop
+        elif stop > end:
+            total, end = total + stop - end, stop
+    return total / 1e3
+
+
+def device_profile(fn, start=None):
+    """One call of ``fn`` under ``device_events``: device ms by kernel
+    name, and its busy time split by stream use: ``device_busy_ms`` (the
+    union of every kernel's interval), ``nccl_ms`` (of NCCL's kernels),
+    ``compute_ms`` (of the others), ``overlap_ms`` (both at once), and
+    ``call_ms``, the call's own wall from its start to the card's end.
+    ``start`` runs first inside the window, outside ``call_ms``: for
+    ranks of a group a host barrier, so that no rank's collectives count
+    the time it waits for a peer still starting its profiler.  ``({},
+    {})`` when the profiler recorded no device activity or there is no
+    card (a rehearsal on the CPU)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return {}, {}
+    wall = []
+
+    def call():
+        if start is not None:
+            start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+
+    events = device_events(call)
+    if not events:
+        return {}, {}
+    nccl = [e for e in events if "nccl" in e.name.lower()]
+    comp = [e for e in events if "nccl" not in e.name.lower()]
+    busy, nccl_ms, comp_ms = union_ms(events), union_ms(nccl), \
+        union_ms(comp)
+    return by_kernel_name(events), {
+        "device_busy_ms": busy, "nccl_ms": nccl_ms, "compute_ms": comp_ms,
+        "overlap_ms": nccl_ms + comp_ms - busy, "call_ms": wall[0]}
+
+
+def idle_share(streams, wall_ms):
+    """``{"idle_share": 1 - busy / wall_ms}`` of a ``device_profile``
+    split: the share of ``wall_ms`` in which no kernel ran, on any
+    stream; "not measured" (busy ms too) when the split is empty."""
+    if not streams:
+        return {"device_busy_ms": "not measured",
+                "idle_share": "not measured"}
+    return {"idle_share": 1 - streams["device_busy_ms"] / wall_ms}
+
+
+def device_ms_by_class(by_name):
+    """Device ms (``device_times``) summed by class of kernel name: the
+    flash kernels, the GEMMs, NCCL's collectives, and the rest."""
+    by_class = {}
+    for n, ms in by_name.items():
+        c = ("attention kernels (K1-K3)" if "flash_" in n else
+             "matmul" if any(x in n for x in ("gemm", "nvjet", "cutlass",
+                                               "xmma", "sm90_")) else
+             "collectives (NCCL)" if "nccl" in n.lower() else
+             "elementwise, copy and reduction")
+        by_class[c] = by_class.get(c, 0.0) + ms
+    return by_class
 
 
 def rank_kernels(by_name):
@@ -2377,15 +2498,9 @@ def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ, warmup=2,
     losses.append(float(m["loss"]))
     grad_norms.append(float(m["grad_norm"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    by_name = device_times(lambda: tr.step(state, batch))
-    busy_ms, top = rank_kernels(by_name)
-    by_class = {}
-    for n, ms in by_name.items():
-        c = ("attention kernels (K1-K3)" if "flash_" in n else
-             "matmul" if any(x in n for x in ("gemm", "nvjet", "cutlass",
-                                               "xmma", "sm90_")) else
-             "elementwise, copy and reduction")
-        by_class[c] = by_class.get(c, 0.0) + ms
+    by_name, streams = device_profile(lambda: tr.step(state, batch))
+    _, top = rank_kernels(by_name)
+    by_class = device_ms_by_class(by_name)
     # the optimizer alone: one update of the real state with zero grads
     leaves = tree_leaves(state["params"])
     grads = [torch.zeros_like(p) for p in leaves]
@@ -2401,9 +2516,8 @@ def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ, warmup=2,
             "launches_per_step": {n: c / steps for n, c in launches.items()},
             "losses": losses, "grad_norms": grad_norms,
             "grad_norm": grad_norms[-1],
-            "device_busy_ms": busy_ms,
-            "idle_share": (1 - busy_ms / (1e3 * step_s) if top
-                           else "not measured"),
+            "param_types": sorted({type(t).__name__ for t in leaves}),
+            **streams, **idle_share(streams, 1e3 * step_s),
             "device_ms_by_class": by_class, "optimizer_ms": optimizer_ms,
             "top_kernels_ms": top}
 
@@ -2419,6 +2533,243 @@ def check_train(name, run, per_step):
                                            *run["grad_norms"]]):
         raise AssertionError(f"{name}: losses {run['losses']}, grad norms "
                              f"{run['grad_norms']}")
+
+
+def phase_mesh(train_cfg, train, device="cuda", seq=SEQ):
+    """``train_cfg``'s train step through a world-1 mesh (``fsdp``
+    preset over this process's NCCL group), beside the ``train`` phase's
+    run ``train`` from the same seed and tokens."""
+    from ray_tpu_torch.models.training import make_llama_trainer
+    from ray_tpu_torch.parallel import MESH_PRESETS, create_mesh
+
+    mesh = create_mesh(MESH_PRESETS["fsdp"], device=device)
+
+    def make(cfg, **kw):
+        return make_llama_trainer(cfg, mesh, **kw)
+
+    run = phase_train(train_cfg, device=device, steps=MESH_STEPS, seq=seq,
+                      warmup=MESH_WARMUP, make_trainer=make)
+    if run["param_types"] != ["DTensor"]:
+        raise AssertionError(f"mesh: params are {run['param_types']}")
+    rel = abs(run["losses"][0] - train["losses"][0]) / abs(
+        train["losses"][0])
+    if not rel <= 1e-3:
+        raise AssertionError(f"mesh: first loss {run['losses'][0]}, "
+                             f"train's {train['losses'][0]} (rtol 1e-3)")
+    keys = ("step_ms", "device_busy_ms", "idle_share", "peak_memory_gb")
+    return {"mesh": str(mesh), "first_loss_rel_diff_vs_train": rel,
+            "first_loss_bit_equal_to_train": run["losses"][0]
+            == train["losses"][0],
+            "train_phase": {k: train[k] for k in keys}, **run}
+
+
+def mesh4_rank(rank, world, port, queue):
+    """One rank of ``phase_mesh4``: joins the NCCL group on card ``rank``,
+    runs the trainer on each mesh of ``MESH4_MESHES`` and the ring, and
+    puts its results (or its traceback) on ``queue``."""
+    import traceback
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    try:
+        queue.put((rank, mesh4_body()))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh4_body():
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               make_llama_trainer)
+    from ray_tpu_torch.ops.attention import ring_attention
+    from ray_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.parallel import (MeshConfig, create_mesh,
+                                        ensure_process_group)
+
+    ensure_process_group()
+    host = dist.new_group(backend="gloo")  # a barrier that runs no kernel
+    dev = torch.device("cuda", torch.cuda.current_device())
+    # Llama-2-7B at its full 32 layers (fp32 params, bf16 activations):
+    # params and AdamW moments sharded four ways fit where one card's 16
+    # layers peaked at 62 GB
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), dtype=torch.bfloat16,
+                              param_dtype=torch.float32,
+                              remat_policy="save_attn")
+    out = {}
+    for name, kw in MESH4_MESHES.items():
+        mesh = create_mesh(MeshConfig(**kw))
+        tr = make_llama_trainer(cfg, mesh, optimizer=default_optimizer(
+            warmup=1, decay_steps=1000))
+        t0 = time.perf_counter()
+        state = tr.init_state(seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rows = math.prod(n for a, n in zip(mesh.mesh_dim_names, mesh.shape)
+                         if a in ("dp", "fsdp"))
+        gen = torch.Generator(device=dev).manual_seed(4)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, SEQ + 1),
+                                         generator=gen, device=dev)}
+        losses = []
+        for _ in range(MESH_WARMUP):
+            state, m = tr.step(state, batch)
+            losses.append(float(m["loss"]))
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(MESH_STEPS):
+            state, m = tr.step(state, batch)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / MESH_STEPS
+        losses.append(float(m["loss"]))
+        launched = [(b - a) / MESH_STEPS
+                    for a, b in zip(before, _launch_counts())]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        by_name, streams = device_profile(
+            lambda: tr.step(state, batch),
+            start=lambda: dist.barrier(group=host))
+        _, top = rank_kernels(by_name)
+        out[name] = {
+            "mesh": str(mesh), "init_s": init_s, "step_ms": 1e3 * step_s,
+            # against the profiled step's own wall: NCCL's kernels
+            # include waits for peers, which the profiler's host cost
+            # lengthens, so the timed steps' wall does not bound them
+            **streams, **idle_share(streams, streams.get("call_ms")),
+            "device_ms_by_class": device_ms_by_class(by_name),
+            "top_kernels_ms": top,
+            "tokens_per_s": rows * SEQ / step_s, "losses": losses,
+            "grad_norm": float(m["grad_norm"]),
+            "k1_k2_k3_per_step": launched, "peak_memory_gb": peak,
+            "param_types": sorted({type(t).__name__ for t in
+                                   state["params"]["layers"].values()})}
+        del tr, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh = create_mesh(MeshConfig(dp=1, sp=MESH4_RANKS))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, MESH4_RING_SEQ, 32, 128), generator=gen,
+                           device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    ring = ring_attention(q, k, v, mesh=mesh, causal=True)
+    whole, _ = flash_attention_fwd(q, k, v, causal=True)
+    local = ring.to_local()
+    blk = local.shape[1]
+    idx = mesh.get_local_rank("sp")
+    want = whole[:, idx * blk:(idx + 1) * blk]
+    err = float((local.float() - want.float()).abs().max())
+    bad = int(((local.float() - want.float()).abs()
+               > 2e-2 + 2e-2 * want.float().abs()).sum())
+    out["ring"] = {"seq": MESH4_RING_SEQ, "sp": MESH4_RANKS,
+                   "max_abs_err_vs_k1": err, "elements_over_tol": bad,
+                   "atol_rtol": 2e-2,
+                   "ring_ms": cuda_ms(lambda: ring_attention(
+                       q, k, v, mesh=mesh, causal=True), 3),
+                   "k1_whole_ms": cuda_ms(lambda: flash_attention_fwd(
+                       q, k, v, causal=True), 3)}
+    return out
+
+
+def phase_mesh4(world=MESH4_RANKS, timeout=MESH4_TIMEOUT_S):
+    """``world`` ranks (``mesh4_rank``) started with ``spawn``, joined
+    within ``timeout`` seconds (killed past it).  Fails unless every rank
+    reports, K1/K2/K3 launch once per layer per step on every rank, the
+    losses are finite and the ring agrees with K1 on the whole
+    sequence."""
+    import multiprocessing
+    import queue as queue_mod
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=mesh4_rank, args=(r, world, port, results))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"mesh4: {world - len(got)} ranks did "
+                                     f"not report within {timeout} s")
+            try:
+                rank, out = results.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in got]
+                if dead:
+                    raise AssertionError(f"mesh4: ranks {dead} exited "
+                                         "without reporting")
+                continue
+            if "error" in out:
+                raise AssertionError(f"mesh4 rank {rank}:\n{out['error']}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    L = 32
+    for rank, out in got.items():
+        for name in MESH4_MESHES:
+            run = out[name]
+            if run["k1_k2_k3_per_step"] != [L, L, L]:
+                raise AssertionError(f"mesh4 {name} rank {rank}: K1/K2/K3 "
+                                     f"per step {run['k1_k2_k3_per_step']}")
+            if not all(math.isfinite(x) for x in run["losses"]):
+                raise AssertionError(f"mesh4 {name}: losses {run['losses']}")
+            if run["param_types"] != ["DTensor"]:
+                raise AssertionError(f"mesh4 {name}: {run['param_types']}")
+        if out["ring"]["elements_over_tol"]:
+            raise AssertionError(f"mesh4 ring rank {rank}: {out['ring']}")
+    return {"ranks": world, "layers": L, "phase_s":
+            time.perf_counter() - t0, "rank0": got[0],
+            "step_ms_by_rank": {name: [got[r][name]["step_ms"]
+                                       for r in sorted(got)]
+                                for name in MESH4_MESHES},
+            "ring_max_abs_err_by_rank": [got[r]["ring"]["max_abs_err_vs_k1"]
+                                         for r in sorted(got)]}
+
+
+def small_mesh_reference(device="cuda", steps=3):
+    """``small_train_reference``'s model, tokens and steps through a
+    world-1 mesh on ``device`` (the params DTensors) against the plain
+    path on the CPU with no mesh (``train_vs_cpu``); on the card K1, K2
+    and K3 must each launch once per layer per step."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.models.training import make_llama_trainer
+    from ray_tpu_torch.parallel import MESH_PRESETS, create_mesh
+
+    mesh = create_mesh(MESH_PRESETS["fsdp"], device=device)
+    cfg = LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                           max_seq_len=512, attention_impl="flash")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 301),
+                           generator=torch.Generator().manual_seed(6))
+    out = train_vs_cpu(cfg, llama_init(cfg, seed=5, device="cpu"),
+                       functools.partial(make_llama_trainer, mesh=mesh),
+                       tokens, device, steps,
+                       make_reference=make_llama_trainer)
+    launched = out["train_k1_k2_k3_launches"]
+    if device == "cuda" and launched != [steps * cfg.num_layers] * 3:
+        raise AssertionError(f"mesh: K1/K2/K3 launched {launched} times in "
+                             f"{steps} steps of {cfg.num_layers} layers")
+    return out
 
 
 def phase_moe_forward(device="cuda", want_layers=MOE_FORWARD_LAYERS,
@@ -2515,7 +2866,7 @@ def phase_moe_forward(device="cuda", want_layers=MOE_FORWARD_LAYERS,
             "tflops_by_active_top2_flops": active / forward_s / 1e12}
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2527,6 +2878,15 @@ def main() -> int:
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
     smi = phase_env()
+    if argv == ["mesh4"]:
+        emit({"phase": "mesh4", **phase_mesh4()})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     k1 = phase_kernels()
     k4 = phase_kernels_k4()
     emit({"phase": "small_reference", **phase_small_reference()})
@@ -2583,6 +2943,18 @@ def main() -> int:
           "params_b": train_cfg.num_params() / 1e9, **train})
     check_train("train", train, {"K1": TRAIN_LAYERS, "K2": TRAIN_LAYERS,
                                  "K3": TRAIN_LAYERS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(train_cfg, train)
+    emit({"phase": "mesh", "model": "llama2_7b", "layers": TRAIN_LAYERS,
+          "depth_cut": DEPTH_CUT, "batch": 1, "seq": SEQ,
+          "remat_policy": train_cfg.remat_policy, **mesh})
+    check_train("mesh", mesh, {"K1": TRAIN_LAYERS, "K2": TRAIN_LAYERS,
+                               "K3": TRAIN_LAYERS})
+    if torch.cuda.device_count() >= MESH4_RANKS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "mesh4", **phase_mesh4()})
     # the other policies from the same seed and tokens: the forward does
     # not depend on the policy, so the first step's loss is bit-equal
     policies = {}
@@ -2643,7 +3015,7 @@ def main() -> int:
     main_case = k1["main_path"]
     row1, bwd = main_case["k1"], main_case["bwd"]
     gqa1, gqa_bwd = k1["mixtral_gqa"]["k1"], k1["mixtral_gqa"]["bwd"]
-    train_paths = {"train": train, "moe_train": moe_train,
+    train_paths = {"train": train, "mesh": mesh, "moe_train": moe_train,
                    **{f"train_{p}": r for p, r in policies.items()}}
 
     def by_path(name):
@@ -2715,4 +3087,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,4 +1,4 @@
-"""Llama-family decoder-only transformer in PyTorch (single device).
+"""Llama-family decoder-only transformer in PyTorch.
 
 Counterpart of ``ray_tpu/models/llama.py``.  Parameters are a plain dict
 in the JAX pytree's layout (``x @ W`` weights, layers stacked ``[L, ...]``)
@@ -13,13 +13,22 @@ records (grad mode on and params that require grad) each decoder layer
 runs under the config's remat policy; serving, with frozen params or
 under ``torch.no_grad()``, builds no graph.  ``llama_loss`` is the
 training loss.
-The mesh and pipeline paths come with the parallel slice.
+
+Under a mesh (``parallel/``) the params are DTensors placed by
+``llama_param_specs`` through a rule table, and the program is the same
+global-view program: activations are constrained by logical axes
+(``_constrain``, a ``redistribute``), each weight is gathered over the
+data axes for its product (the FSDP all-gather, inside the remat region
+so the backward replays it), attention runs per local shard or as ring
+attention (``ops/attention.py``), and with ``pp > 1`` the layers run
+pipelined over the stages (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -64,6 +73,8 @@ class LlamaConfig:
     # (p - sliding_window, p].  None = full causal.
     sliding_window: Optional[int] = None
     tie_embeddings: bool = False
+    # microbatches for pipeline parallelism (mesh "pp" axis); default 2*pp
+    pp_microbatches: Optional[int] = None
 
     @property
     def resolved_head_dim(self) -> int:
@@ -156,6 +167,66 @@ def llama_init(cfg: LlamaConfig, seed: int = 0,
     return params
 
 
+def llama_param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Logical-axis spec tree matching ``llama_init``'s structure (layers
+    stacked, as the port holds them)."""
+    layer = {
+        "attn_norm": ("norm",),
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+        "mlp_norm": ("norm",),
+        "w_gate": ("embed", "mlp"),
+        "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"),
+    }
+    specs = {
+        "embed": ("vocab", "embed"),
+        "layers": {k: ("layers",) + v for k, v in layer.items()},
+        "final_norm": ("norm",),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    return specs
+
+
+def _constrain(x, mesh, *axes, rules=None):
+    if mesh is None:
+        return x
+    from ray_tpu_torch.parallel.sharding import with_logical_constraint
+
+    return with_logical_constraint(x, mesh, *axes, rules=rules)
+
+
+def _weight(w: torch.Tensor, dt: torch.dtype, mesh) -> torch.Tensor:
+    """A weight in the compute dtype; under a mesh also gathered over the
+    data axes (dp, fsdp, sp: the FSDP all-gather), keeping its tp shard,
+    so its product shards like the reference's Megatron layout.  Cast
+    first, so the gather moves ``dt`` bytes."""
+    w = w.to(dt)
+    if mesh is None:
+        return w
+    from torch.distributed.tensor import Replicate
+
+    placements = [Replicate() if n in ("dp", "fsdp", "sp") else p
+                  for n, p in zip(mesh.mesh_dim_names, w.placements)]
+    if placements == list(w.placements):
+        return w
+    return w.redistribute(mesh, placements)
+
+
+def _seq_whole(y, mesh, rules, last=None):
+    """An activation ``[b, s, last]`` that meets the weights, as the
+    product's input or in the residual sum with its output: under a mesh
+    with its sequence gathered over sp, as the product (and its
+    backward, whose grad keeps the placements of the sum's operands)
+    flattens ``[b, s]``, and DTensor cannot fold a sequence sharded
+    there in every torch release (``seq`` comes back at the next
+    constraint; the ring shards it again)."""
+    return _constrain(y, mesh, "batch", None, last, rules=rules)
+
+
 def stacked_layers(params) -> Iterator[Tuple[int, Dict[str, torch.Tensor]]]:
     """Iterate stacked layer params ``[L, ...]`` as per-layer views.  One
     ``unbind`` per leaf: under autograd its backward is one ``stack``,
@@ -166,49 +237,147 @@ def stacked_layers(params) -> Iterator[Tuple[int, Dict[str, torch.Tensor]]]:
         yield i, {k: v[i] for k, v in views.items()}
 
 
-def embed_tokens(params, tokens: torch.Tensor, cfg: LlamaConfig):
+def embed_tokens(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+                 mesh=None, rules=None):
     """Embedding gather in ``cfg.dtype``.  JAX's ``embed[tokens]`` wraps
     negative ids (``ids + V``) and clamps what is still out of range,
     where torch raises (CPU) or asserts on the device (CUDA), so both
     steps are explicit here: -1 reads row V-1, and ids below -V or at V
-    and above read the first or last row."""
-    vocab = params["embed"].shape[0]
+    and above read the first or last row.
+
+    Under a mesh the gather's operands are pinned first, as the
+    reference's ``_embed_lookup``: the table keeps its vocab shard and
+    is gathered over the model dim, the ids carry the batch/seq layout,
+    so the output is the activation layout (``RAY_TPU_LEGACY_SHARDING=1``
+    drops the operand pins: the table keeps its param layout and the ids
+    theirs, a plain batch replicated).  The gather itself runs per local
+    shard (``_gather_rows``)."""
+    from ray_tpu_torch.parallel.sharding import (as_global,
+                                                 legacy_sharding_enabled)
+
+    table = params["embed"]
+    if mesh is not None and legacy_sharding_enabled():
+        table, tokens = as_global(table, mesh), as_global(tokens, mesh)
+    elif mesh is not None:
+        table = _constrain(table, mesh, "vocab", None, rules=rules)
+        tokens = _constrain(tokens, mesh, "batch", "seq", rules=rules)
+    vocab = table.shape[0]
     ids = torch.where(tokens < 0, tokens + vocab, tokens).clamp(0, vocab - 1)
-    return params["embed"][ids].to(cfg.dtype)
+    rows = table[ids] if mesh is None else _gather_rows(table, ids, mesh)
+    return _constrain(rows.to(cfg.dtype), mesh, "batch", "seq", None,
+                      rules=rules)
 
 
-def lm_head(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def _gather_rows(table, ids, mesh):
+    """``table[ids]`` of DTensors, per local shard (``local_map``): each
+    rank gathers its ids' rows from its block of the vocab, zeros for ids
+    outside it, and the output is their sum over the vocab shards
+    (Megatron's vocab-parallel embedding).  DTensor's own rules for the
+    gather's backward differ between torch releases (indexing's
+    ``index_put`` and ``embedding``'s both fail on one or another), so
+    none is used."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    vocab = [i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    if any(isinstance(p, Shard) and p.dim != 0 for p in table.placements):
+        table = table.redistribute(mesh, [
+            p if i in vocab else Replicate()
+            for i, p in enumerate(table.placements)])
+    if any(not isinstance(ids.placements[i], Replicate) for i in vocab):
+        ids = ids.redistribute(mesh, [Replicate() if i in vocab else p
+                                      for i, p in enumerate(ids.placements)])
+    shards = math.prod(mesh.shape[i] for i in vocab)
+    if table.shape[0] % shards:
+        raise ValueError(f"vocab {table.shape[0]} does not split evenly "
+                         f"over {shards} shards")
+    first = 0
+    for i in vocab:
+        first = first * mesh.shape[i] + mesh.get_local_rank(i)
+    first *= table.shape[0] // shards
+    data = [i for i, p in enumerate(ids.placements) if isinstance(p, Shard)]
+
+    def local(ids, table):
+        if not vocab:
+            return table[ids]
+        idx = ids - first
+        hit = (idx >= 0) & (idx < table.shape[0])
+        return table[idx.clamp(0, table.shape[0] - 1)] * hit[..., None].to(
+            table.dtype)
+
+    return local_map(
+        local, out_placements=[Partial() if i in vocab else p
+                               for i, p in enumerate(ids.placements)],
+        in_placements=(ids.placements, table.placements),
+        in_grad_placements=(ids.placements, [
+            Partial() if i in data else p
+            for i, p in enumerate(table.placements)]),
+        device_mesh=mesh)(ids, table)
+
+
+def lm_head(params, cfg: LlamaConfig, x: torch.Tensor, *, mesh=None,
+            rules=None) -> torch.Tensor:
     """Final norm and the vocabulary projection, logits in fp32 (both
-    operands upcast: exact for bf16 products, fp32 accumulation)."""
-    x = rms_norm(x, params["final_norm"])
-    head = (params["embed"].T if cfg.tie_embeddings
-            else params["lm_head"]).to(cfg.dtype)
-    return x.float() @ head.float()
+    operands upcast: exact for bf16 products, fp32 accumulation); under
+    a mesh constrained to ("batch", "seq", None)."""
+    x = _seq_whole(rms_norm(x, params["final_norm"]), mesh, rules)
+    head = _weight(params["embed"].T if cfg.tie_embeddings
+                   else params["lm_head"], cfg.dtype, mesh)
+    return _constrain(x.float() @ head.float(), mesh, "batch", "seq", None,
+                      rules=rules)
 
 
-def attention_block(x, lp, cfg: LlamaConfig, cos, sin, window=None):
+def attention_block(x, lp, cfg: LlamaConfig, cos, sin, window=None, *,
+                    mesh=None, rules=None):
     """The attention half of a decoder layer: ``x`` plus causal attention
     of ``rms_norm(x)`` (keys in ``window``, None = all) through ``wo``."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = cfg.dtype
-    y = rms_norm(x, lp["attn_norm"])
-    q = (y @ lp["wq"].to(dt)).reshape(b, s, cfg.num_heads, hd)
-    k = (y @ lp["wk"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (y @ lp["wv"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
+    y = _seq_whole(rms_norm(x, lp["attn_norm"]), mesh, rules)
+    q = (y @ _weight(lp["wq"], dt, mesh)).reshape(b, s, cfg.num_heads, hd)
+    k = (y @ _weight(lp["wk"], dt, mesh)).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (y @ _weight(lp["wv"], dt, mesh)).reshape(b, s, cfg.num_kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = _constrain(q, mesh, "batch", "seq", "heads", None, rules=rules)
     attn = dot_product_attention(q, k, v, causal=True,
-                                 impl=cfg.attention_impl, window=window)
-    return x + attn.reshape(b, s, cfg.num_heads * hd) @ lp["wo"].to(dt)
+                                 impl=cfg.attention_impl, mesh=mesh,
+                                 window=window)
+    attn = _seq_whole(attn.reshape(b, s, cfg.num_heads * hd), mesh, rules,
+                      "heads")
+    x = _seq_whole(x, mesh, rules) + _seq_whole(
+        attn @ _weight(lp["wo"], dt, mesh), mesh, rules)
+    return _constrain(x, mesh, "batch", "seq", None, rules=rules)
 
 
-def _decoder_layer(x, lp, *, cfg: LlamaConfig, cos, sin):
-    x = attention_block(x, lp, cfg, cos, sin, cfg.sliding_window)
+def _swiglu(gate, up, mesh):
+    """``swiglu_op``; under a mesh per local shard (``local_map``), where
+    the op has no DTensor sharding rule of its own."""
+    if mesh is None:
+        return swiglu_op(gate, up)
+    from torch.distributed.tensor.experimental import local_map
+
+    layout = list(gate.placements)
+    if list(up.placements) != layout:
+        up = up.redistribute(mesh, layout)
+    return local_map(swiglu_op, out_placements=layout,
+                     in_placements=(layout, layout),
+                     device_mesh=mesh)(gate, up)
+
+
+def _decoder_layer(x, lp, *, cfg: LlamaConfig, cos, sin, mesh=None,
+                   rules=None):
+    x = attention_block(x, lp, cfg, cos, sin, cfg.sliding_window, mesh=mesh,
+                        rules=rules)
     dt = cfg.dtype
-    y = rms_norm(x, lp["mlp_norm"])
-    act = swiglu_op(y @ lp["w_gate"].to(dt), y @ lp["w_up"].to(dt))
-    return x + act @ lp["w_down"].to(dt)
+    y = _seq_whole(rms_norm(x, lp["mlp_norm"]), mesh, rules)
+    act = _swiglu(y @ _weight(lp["w_gate"], dt, mesh),
+                  y @ _weight(lp["w_up"], dt, mesh), mesh)
+    x = _seq_whole(x, mesh, rules) + _seq_whole(
+        act @ _weight(lp["w_down"], dt, mesh), mesh, rules)
+    return _constrain(x, mesh, "batch", "seq", None, rules=rules)
 
 
 # The ops whose outputs each selective policy keeps; autograd replays the
@@ -252,24 +421,66 @@ def records_grad(params) -> bool:
                                   *params["layers"].values()])
 
 
+def rope_tables(cfg: LlamaConfig, s: int, device, mesh=None):
+    """The rotary cos/sin tables for ``s`` positions; under a mesh as
+    replicated DTensors, so the rotation of sharded q/k stays local."""
+    cos, sin = rope_frequencies(cfg.resolved_head_dim, s, cfg.rope_theta,
+                                device=device)
+    if mesh is None:
+        return cos, sin
+    from ray_tpu_torch.parallel.sharding import as_global
+
+    return as_global(cos, mesh), as_global(sin, mesh)
+
+
 def llama_apply(params: Dict[str, Any], tokens: torch.Tensor,
-                cfg: LlamaConfig, *, mesh=None) -> torch.Tensor:
+                cfg: LlamaConfig, *, mesh=None, rules=None) -> torch.Tensor:
     """Forward pass: tokens [b, s] int → logits [b, s, vocab] (fp32), on
     the device the params and tokens live on.  When autograd is on and the
-    params require grad, each decoder layer runs under ``layer_remat``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded llama_apply comes with the parallel slice of the "
-            "port (ROADMAP Queue 1, item 7)")
+    params require grad, each decoder layer runs under ``layer_remat``.
+
+    ``mesh``: params are DTensors (``shard_tree`` by
+    ``llama_param_specs``) and ``tokens`` a DTensor or the global batch
+    every rank holds; the logits are a DTensor (global view).  ``rules``
+    is the rule table the params were sharded with (None =
+    ``DEFAULT_RULES``): activations are constrained through the same
+    table."""
+    from ray_tpu_torch.parallel.mesh import compute_mesh
+    from ray_tpu_torch.parallel.pipeline import (pipeline_apply,
+                                                 pipeline_microbatches,
+                                                 pp_size)
+
+    mesh = compute_mesh(mesh)
     s = tokens.shape[1]
-    cos, sin = rope_frequencies(cfg.resolved_head_dim, s, cfg.rope_theta,
-                                device=tokens.device)
-    x = embed_tokens(params, tokens, cfg)
-    layer = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin)
+    x = embed_tokens(params, tokens, cfg, mesh=mesh, rules=rules)
     remat = layer_remat(cfg) if records_grad(params) else None
-    for _, lp in stacked_layers(params):
-        x = layer(x, lp) if remat is None else remat(layer, x, lp)
-    return lm_head(params, cfg, x)
+    if pp_size(mesh) > 1:
+        # layers stage-sharded over "pp", run per local shard: the stage
+        # body is the single-device layer with 'ref' attention, as the
+        # reference's (it drops constraints under the pipeline's vmap)
+        if not cfg.scan_layers:
+            raise ValueError("pp>1 requires scan_layers=True (stacked params)")
+        if cfg.attention_impl not in ("auto", "ref"):
+            raise ValueError(
+                f"attention_impl={cfg.attention_impl!r} is incompatible "
+                "with pp>1: ring needs its own (nested) shard_map and "
+                "pallas flash can't be auto-partitioned under the "
+                "pipeline's vmapped stage dim; use 'auto' or 'ref'")
+        cos, sin = rope_tables(cfg, s, x.device)
+        stage = functools.partial(
+            _decoder_layer, cfg=dataclasses.replace(cfg, attention_impl="ref"),
+            cos=cos, sin=sin)
+        x = pipeline_apply(
+            stage, params["layers"], x, mesh=mesh, remat=remat,
+            num_microbatches=pipeline_microbatches(cfg.pp_microbatches, mesh))
+        x = _constrain(x, mesh, "batch", "seq", None, rules=rules)
+    else:
+        cos, sin = rope_tables(cfg, s, x.device, mesh)
+        layer = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin,
+                                  mesh=mesh, rules=rules)
+        for _, lp in stacked_layers(params):
+            x = layer(x, lp) if remat is None else remat(layer, x, lp)
+    return lm_head(params, cfg, x, mesh=mesh, rules=rules)
 
 
 def next_token_nll(logits: torch.Tensor,
@@ -281,14 +492,17 @@ def next_token_nll(logits: torch.Tensor,
 
 
 def llama_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-               cfg: LlamaConfig, *, mesh=None) -> torch.Tensor:
+               cfg: LlamaConfig, *, mesh=None, rules=None) -> torch.Tensor:
     """Next-token cross-entropy in fp32; batch has 'tokens' [b, s] and an
-    optional 'mask' [b, s] (1 = contribute to the loss)."""
-    tokens = batch["tokens"]
-    logits = llama_apply(params, tokens[:, :-1], cfg, mesh=mesh)
+    optional 'mask' [b, s] (1 = contribute to the loss).  Under a mesh a
+    replicated scalar DTensor."""
+    tokens = _constrain(batch["tokens"], mesh, "batch", rules=rules)
+    logits = llama_apply(params, tokens[:, :-1], cfg, mesh=mesh, rules=rules)
     nll = next_token_nll(logits, tokens)
     mask = batch.get("mask")
     if mask is not None:
-        mask = mask[:, 1:].float()
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    return nll.mean()
+        mask = _constrain(mask, mesh, "batch", rules=rules)[:, 1:].float()
+        loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    else:
+        loss = nll.mean()
+    return _constrain(loss, mesh, rules=rules)

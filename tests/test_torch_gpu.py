@@ -535,6 +535,21 @@ def test_moe_forward_and_train_steps_match_cpu_on_card():
 
 
 @pytest.mark.gpu
+def test_mesh_trainer_steps_match_cpu_on_card():
+    """``chip_smoke.py``'s small fp32 Llama (head_dim 64, s=300, flash
+    attention under ``save_attn``) through a world-1 NCCL mesh (the
+    ``fsdp`` preset: the params and AdamW moments are DTensors) for three
+    trainer steps on the card, against the same steps through the plain
+    versions on the CPU with no mesh, raising on a mismatch; K1, K2 and
+    K3 launch once per layer per step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the mesh's attention runs K1-K3 "
+                    "on the card over NCCL")
+    out = _chip_smoke().small_mesh_reference("cuda", steps=3)
+    assert out["train_k1_k2_k3_launches"] == [6, 6, 6]
+
+
+@pytest.mark.gpu
 def test_moe_router_ties_on_card():
     """With an all-zero router every probability is 1/E and, as
     ``jax.lax.top_k`` does, the port routes every token to experts 0 and

@@ -60,7 +60,9 @@ def test_import_leaves_jax_and_reference_unloaded():
         "ray_tpu_torch.experimental, ray_tpu_torch.experimental.channel, "
         "ray_tpu_torch.experimental.channel.shared_memory_channel, "
         "ray_tpu_torch.experimental.channel.transport, "
-        "ray_tpu_torch.llm.kv_transfer, ray_tpu_torch.util.fault_injection\n"
+        "ray_tpu_torch.llm.kv_transfer, ray_tpu_torch.util.fault_injection, "
+        "ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, "
+        "ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.pipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"

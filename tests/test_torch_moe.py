@@ -286,17 +286,18 @@ def test_trainer_steps_match_jax():
 
 
 def test_mesh_and_device_rejections(monkeypatch):
-    """A mesh belongs to the parallel slice (item 7); ``device=None``
-    means the GPU, so without CUDA init and trainer raise rather than run
-    on the host."""
+    """A mesh that is not a ``DeviceMesh`` is refused (the mesh path is
+    held against JAX in test_torch_parallel.py); ``device=None`` means
+    the GPU, so without CUDA init and trainer raise rather than run on
+    the host."""
     _, tcfg = _configs()
     params = tmoe.moe_init(tcfg, device="cpu")
     tokens = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         tmoe.moe_apply(params, tokens, tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         tmoe.moe_loss(params, {"tokens": tokens}, tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         tmoe.make_moe_trainer(tcfg, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -127,8 +127,9 @@ def test_sliding_window_mask_convention():
 def test_dot_product_attention_dispatch(monkeypatch):
     """CPU inputs take the reference under 'auto' even at s >= 256; 'flash'
     goes through the flash entry (its plain version on the CPU); a window
-    with 'flash' raises as in JAX; ring and meshes belong to a later
-    slice."""
+    with 'flash' raises as in JAX; ring without a mesh raises, as JAX's
+    asserts, and a mesh that is not a ``DeviceMesh`` is refused (the mesh
+    paths are held against JAX in test_torch_parallel.py)."""
     rng = np.random.default_rng(5)
     q = _t(_rand(rng, 1, 256, 2, 16))
     k, v = _t(_rand(rng, 1, 256, 1, 16)), _t(_rand(rng, 1, 256, 1, 16))
@@ -148,9 +149,9 @@ def test_dot_product_attention_dispatch(monkeypatch):
     np.testing.assert_allclose(_np(flash), _np(auto), atol=ATOL_ATTN)
     with pytest.raises(ValueError, match="sliding windows"):
         tattn.dot_product_attention(q, k, v, impl="flash", window=8)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(ValueError, match="ring attention needs a mesh"):
         tattn.dot_product_attention(q, k, v, impl="ring")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         tattn.dot_product_attention(q, k, v, mesh=object())
 
 

@@ -335,15 +335,15 @@ def test_trainer_steps_match_jax(accum_steps):
 
 def test_trainer_device_none_needs_cuda(monkeypatch):
     """``device=None`` means the GPU: without CUDA the trainer raises
-    rather than training on the host, and a mesh belongs to a later
-    slice."""
+    rather than training on the host, and a mesh that is not a
+    ``DeviceMesh`` is refused (the mesh path: test_torch_parallel.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tcfg = _configs()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttraining.Trainer(lambda seed, dev: {}, lambda p, b: 0.0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttraining.make_llama_trainer(tcfg)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         ttraining.make_llama_trainer(tcfg, mesh=object(), device="cpu")
 
 
