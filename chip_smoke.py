@@ -6,7 +6,9 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py mesh4`` runs only the ``env`` phase and the
-four-card ``mesh4`` phase below, on a machine with four or more cards.)
+four-card ``mesh4`` phase below, on a machine with four or more cards;
+``python3 chip_smoke.py serve_mesh4`` the ``env`` phase, the ``serve``
+phase it compares with and ``serve_mesh4``.)
 
 Phases, each printing one JSON line:
 
@@ -70,7 +72,25 @@ Phases, each printing one JSON line:
 6. ``forward``: ``llama_apply`` at full Llama-2-7B width and depth (bf16
    weights from a seed, b=1, s=2048); K1 must launch once per layer.
 7. ``serve``: ``LLMEngine`` on the same model answers five ~200-token
-   requests, two sharing a 64-token prefix (greedy, 32 new tokens).
+   requests, two sharing a 64-token prefix (greedy, 32 new tokens); one
+   decode window is profiled (busy ms as the union over streams, idle
+   share).
+7b. ``serve_mesh``: the same engine and requests through a world-1 NCCL
+   mesh (``tp=1``: weights and pool DTensors, the steps on their local
+   tensors).  Every token must equal ``serve``'s; decode tokens/s, the
+   profiled window and peak memory are printed beside ``serve``'s.
+7c. ``serve_mesh4`` (only with four or more cards; else a line says
+   so): four NCCL ranks, one per card, spawned and joined with a
+   timeout, serve the same requests with Llama-2-7B at full depth on
+   ``tp=4``, on ``pp=2 x tp=2`` and on ``dp=2 x pp=2`` (one card's ops on
+   each stage, which shows what the pp hand-off alone changes).  Every
+   first token must equal the single-card engine's, and the first decode
+   step's logits, over the slots whose first token agrees, must be no
+   farther (max-abs) from an fp32 forward of the same weights than twice
+   the single-card bf16 engine's distance; it prints the greedy tokens
+   equal to the single card's, each slot's and request's distance from
+   fp32 and from the single card, decode tokens/s, each rank's weight and
+   pool bytes and NCCL ms per decode step.
 8. ``serve_options``: the engine's serving options on the same weights,
    each beside the plain engine on the same prompts: speculative decoding
    (``spec_tokens=4``) on the model's own loop (a greedy fixed point,
@@ -138,7 +158,8 @@ Phases, each printing one JSON line:
 
 Then the ``kernels`` line (every ported kernel with its launches on its
 main path: K1, K2 and K3 in ``train``, K4 in ``ring``; the launches of
-every path that runs it, and K1-K3 at Mixtral's attention shape), the
+every path that runs it, 0 on the serving paths, and K1-K3 at
+Mixtral's attention shape), the
 ``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the traceback is
 printed, the exit code is non-zero and no result line is printed.  Without
@@ -195,6 +216,14 @@ MESH4_MESHES = {"fsdp4": {"dp": 1, "fsdp": 4},
                 "fsdp2_tp2": {"dp": 1, "fsdp": 2, "tp": 2}}
 MESH4_RING_SEQ = 8192
 MESH4_TIMEOUT_S = 600
+# the serving meshes of ``serve_mesh4`` (four cards, full depth); at
+# ``dp=2 x pp=2`` (tp=1) each stage runs one card's ops on its layers, so
+# its logits differ from one card's only by what the pp hand-off and the
+# logits' broadcast change
+SERVE_MESH4_MESHES = {"tp4": {"dp": 1, "tp": 4},
+                      "pp2_tp2": {"dp": 1, "pp": 2, "tp": 2},
+                      "dp2_pp2": {"dp": 2, "pp": 2}}
+SERVE_MESH4_TIMEOUT_S = 600
 # Mixtral-8x7B: the forward in bf16 weights, and the train step in fp32
 # params + AdamW; the forward keeps MOE_RESERVE bytes of the card free
 MOE_FORWARD_LAYERS = 24
@@ -1845,19 +1874,71 @@ def serve_prompts(vocab_size, seed=0):
          for n in (200, 214, 190)]
 
 
-def phase_serve(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
-    from ray_tpu_torch.llm import LLMEngine, SamplingParams
-    from ray_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+def _all_launches():
+    """K1, K2, K3 and K4 launches so far (each wrapper's count)."""
+    from ray_tpu_torch.ops.cuda.remote_copy import remote_copy
 
-    eng = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS, max_len=max_len,
-                    block_size=SERVE_BLOCK, seed=0, device=device)
-    prompts = serve_prompts(cfg.vocab_size)
+    return _launch_counts() + (remote_copy.launches,)
+
+
+def _zero_launches():
+    from ray_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
+                                                        flash_attention_fwd)
+    from ray_tpu_torch.ops.cuda.remote_copy import remote_copy
+
     flash_attention_fwd.launches = 0
-    t0 = time.perf_counter()
-    outs = eng.generate(prompts, SamplingParams(
-        temperature=0.0, max_tokens=SERVE_NEW_TOKENS))
-    wall_s = time.perf_counter() - t0
-    launches = flash_attention_fwd.launches
+    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+    remote_copy.launches = 0
+
+
+class FirstLogits:
+    """Keeps, while in use, the logits of an engine's first admissions
+    (``kept["admission"]``: the first call of the engine's own name for
+    the batch sampler, one row per slot admitted, on a fresh engine the
+    first requests in order) and of its first decode step
+    (``kept["decode"]``: the first call of the paged ops' sampler, one
+    row per slot)."""
+
+    def __enter__(self):
+        from ray_tpu_torch.llm import engine
+        from ray_tpu_torch.models import paged_generation
+
+        self.kept, self.plain = {}, []
+        for key, module in (("admission", engine),
+                            ("decode", paged_generation)):
+            plain = module.sample_token_batch
+            self.plain.append((module, plain))
+
+            def keep(logits, *a, key=key, plain=plain, **kw):
+                if key not in self.kept:
+                    self.kept[key] = logits.detach().float().cpu()
+                return plain(logits, *a, **kw)
+
+            module.sample_token_batch = keep
+        return self
+
+    def __exit__(self, *exc):
+        for module, plain in self.plain:
+            module.sample_token_batch = plain
+
+
+def serve_run(eng, cfg, prompts, start=None):
+    """The ``serve`` workload through ``eng``: the prompts greedily (32
+    new tokens each) with the launches of K1-K4 counted from zero and the
+    logits of the first admissions and of the first decode step kept,
+    then one decode window profiled
+    (``profile_decode_window``; ``start`` runs first inside its profiler
+    window).  Fails unless every request gets its 32 tokens in the
+    vocabulary and a prefix hit happened."""
+    from ray_tpu_torch.llm import SamplingParams
+
+    _zero_launches()
+    with FirstLogits() as first:
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, SamplingParams(
+            temperature=0.0, max_tokens=SERVE_NEW_TOKENS))
+        wall_s = time.perf_counter() - t0
+    launches = _all_launches()
     for o in outs:
         if o.error is not None or len(o.token_ids) != SERVE_NEW_TOKENS \
                 or not all(0 <= t < cfg.vocab_size for t in o.token_ids):
@@ -1875,14 +1956,69 @@ def phase_serve(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
             "prefill_tokens_per_s": t["prefill_tokens"] / t["prefill_s"],
             "decode_tokens": t["decode_tokens"],
             "decode_tokens_per_s": t["decode_tokens"] / t["decode_s"],
-            "k1_launches": launches, "prefix_cache": stats["prefix_cache"],
+            "k1_launches": launches[0],
+            "k1_k2_k3_k4_launches": list(launches),
+            "prefix_cache": stats["prefix_cache"],
             "first_tokens": [o.token_ids[:4] for o in outs],
             "token_ids": [o.token_ids for o in outs],
-            "decode_profile": profile_decode_window(eng, cfg.vocab_size)}
+            "first_token_logits": first.kept["admission"],
+            "first_decode_logits": first.kept["decode"],
+            "decode_profile": profile_decode_window(eng, cfg.vocab_size,
+                                                    start=start)}
 
 
-def pool_bytes(pool) -> int:
-    return sum(t.numel() * t.element_size() for t in pool.values())
+def phase_serve(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
+    from ray_tpu_torch.llm import LLMEngine
+
+    eng = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS, max_len=max_len,
+                    block_size=SERVE_BLOCK, seed=0, device=device)
+    return serve_run(eng, cfg, serve_prompts(cfg.vocab_size))
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a nested dict of tensors (a pool, a rank's local
+    shards)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_serve_mesh(cfg, params, serve, device="cuda",
+                     max_len=SERVE_MAX_LEN):
+    """The ``serve`` phase's engine and requests through a world-1 NCCL
+    mesh (``tp=1``: the weights and pool DTensors, every placement
+    ``Replicate``, the steps on their local tensors).  Fails unless
+    every token equals the ``serve`` phase's; prints decode tokens/s,
+    the profiled decode window (busy ms as the union over streams, idle
+    share) and peak memory beside ``serve``'s."""
+    import torch
+
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.parallel import MeshConfig, create_mesh
+
+    mesh = create_mesh(MeshConfig(dp=1, tp=1), device=device)
+    torch.cuda.reset_peak_memory_stats()
+    eng = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS, max_len=max_len,
+                    block_size=SERVE_BLOCK, seed=0, device=device, mesh=mesh)
+    placed = sorted({type(t).__name__ for t in
+                     [eng.params["embed"], *eng.params["layers"].values(),
+                      *eng.pool.values()]})
+    run = serve_run(eng, cfg, serve_prompts(cfg.vocab_size))
+    run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if placed != ["DTensor"]:
+        raise AssertionError(f"serve_mesh: weights and pool are {placed}")
+    same = run["token_ids"] == serve["token_ids"]
+    if not same:
+        raise AssertionError(
+            f"serve_mesh: tokens differ from serve's: "
+            f"{[t[:8] for t in run['token_ids']]} against "
+            f"{[t[:8] for t in serve['token_ids']]}")
+    keys = ("decode_tokens_per_s", "prefill_ms", "wall_s")
+    return {"mesh": str(mesh), "placed_as": placed,
+            "tokens_equal_serve": same,
+            "serve_phase": {**{k: serve[k] for k in keys},
+                            "decode_profile": serve["decode_profile"]},
+            **run}
 
 
 def run_timed(eng, prompts, max_tokens):
@@ -2107,11 +2243,11 @@ def phase_serve_options(cfg, params, device="cuda", max_len=SERVE_MAX_LEN):
     eng = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS,
                     kv_cache_dtype="int8", **kw)
     got = run_timed(eng, prompts, SERVE_NEW_TOKENS)[0]
-    ratio = pool_bytes(eng.pool) / pool_bytes(plain.pool)
+    ratio = tree_bytes(eng.pool) / tree_bytes(plain.pool)
     if not ratio <= 0.52:
         raise AssertionError(f"int8 pool is {ratio:.4f} of the bf16 pool")
-    int8 = {"pool_bytes": pool_bytes(eng.pool),
-            "bf16_pool_bytes": pool_bytes(plain.pool),
+    int8 = {"pool_bytes": tree_bytes(eng.pool),
+            "bf16_pool_bytes": tree_bytes(plain.pool),
             "pool_ratio": ratio,
             "decode_tokens_per_s": decode_rate(eng),
             "bf16_decode_tokens_per_s": decode_rate(plain),
@@ -2357,12 +2493,9 @@ def device_profile(fn, start=None):
     ``start`` runs first inside the window, outside ``call_ms``: for
     ranks of a group a host barrier, so that no rank's collectives count
     the time it waits for a peer still starting its profiler.  ``({},
-    {})`` when the profiler recorded no device activity or there is no
-    card (a rehearsal on the CPU)."""
+    {})`` when the profiler recorded no device activity."""
     import torch
 
-    if not torch.cuda.is_available():
-        return {}, {}
     wall = []
 
     def call():
@@ -2420,11 +2553,13 @@ def rank_kernels(by_name):
     return sum(by_name.values()), [[n[:80], ms] for n, ms in ranked]
 
 
-def profile_decode_window(eng, vocab_size):
+def profile_decode_window(eng, vocab_size, start=None):
     """Where a decode window's time goes: one window of ``eng.K`` steps over
-    all slots under the profiler (kernel time by name), then an identical
-    window without it (wall time).  The idle share is 1 - kernel time /
-    unprofiled wall time."""
+    all slots under the profiler (``device_profile``: kernel time by
+    name, busy ms as the union over streams, NCCL's kernels apart;
+    ``start`` runs first inside its window), then an identical window
+    without it (wall time).  The idle share is 1 - busy ms / unprofiled
+    wall time.  Fails if the profiler records no device activity."""
     import numpy as np
     import torch
 
@@ -2435,17 +2570,23 @@ def profile_decode_window(eng, vocab_size):
     for _ in range(eng.B):
         eng.submit(rng.integers(3, vocab_size, size=100).tolist(), sp)
     eng.step()  # admissions and the first window
-    busy_ms, top = rank_kernels(device_times(eng.step))
+    by_name, streams = device_profile(eng.step, start=start)
+    if not streams:
+        raise AssertionError("the profiler recorded no device activity in "
+                             "a decode window")
+    kernel_sum_ms, top = rank_kernels(by_name)
     t0 = time.perf_counter()
     eng.step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     while eng.has_unfinished():
         eng.step()
+    busy_ms = streams["device_busy_ms"]
     return {"window_steps": eng.K, "slots": eng.B,
             "unprofiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms if top else "not measured",
-            "top_kernels_ms": top}
+            "kernel_sum_ms": kernel_sum_ms, "nccl_ms": streams["nccl_ms"],
+            "profiled_call_ms": streams["call_ms"],
+            "idle_share": 1 - busy_ms / wall_ms, "top_kernels_ms": top}
 
 
 def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ, warmup=2,
@@ -2745,6 +2886,235 @@ def phase_mesh4(world=MESH4_RANKS, timeout=MESH4_TIMEOUT_S):
                                          for r in sorted(got)]}
 
 
+def serve_mesh4_rank(rank, world, port, queue, prompts, cfg):
+    """One rank of ``phase_serve_mesh4``: joins the NCCL group on card
+    ``rank``, serves ``prompts`` on each mesh of ``SERVE_MESH4_MESHES``
+    and puts its results (or its traceback) on ``queue``."""
+    import traceback
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    try:
+        queue.put((rank, serve_mesh4_body(prompts, cfg)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def serve_mesh4_body(prompts, cfg):
+    """``cfg`` (Llama-2-7B in bf16 weights from seed 0, at full depth)
+    served on each mesh of ``SERVE_MESH4_MESHES`` by ``serve_run``:
+    tokens, the logits of the first admissions and of the first decode
+    step, decode tokens/s, this rank's weight and pool bytes and peak
+    memory, and NCCL's ms per decode step in the profiled window (each
+    rank enters it through a gloo barrier)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.parallel import (MeshConfig, create_mesh,
+                                        ensure_process_group)
+
+    ensure_process_group("cuda")
+    host = dist.new_group(backend="gloo")  # a barrier that runs no kernel
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = llama_init(cfg, seed=0, device=dev)
+    out = {}
+    for name, kw in SERVE_MESH4_MESHES.items():
+        mesh = create_mesh(MeshConfig(**kw), device="cuda")
+        eng = LLMEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, block_size=SERVE_BLOCK,
+                        seed=0, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve_run(eng, cfg, prompts,
+                        start=lambda: dist.barrier(group=host))
+        prof = run["decode_profile"]
+        out[name] = {
+            "mesh": str(mesh), **{k: run[k] for k in (
+                "token_ids", "decode_tokens_per_s", "prefill_ms", "wall_s",
+                "k1_k2_k3_k4_launches")},
+            # numpy: the queue pickles it whole, with no shared memory
+            # that must outlive this process
+            **{k: run[k].numpy() for k in ("first_token_logits",
+                                           "first_decode_logits")},
+            "weight_bytes": tree_bytes(eng._lparams),
+            "pool_bytes": tree_bytes(eng._lpool),
+            "nccl_ms_per_decode_step": prof["nccl_ms"] / prof["window_steps"],
+            "decode_profile": prof,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def fp32_reference(cfg, params, prompts, tokens):
+    """What an fp32 forward of the same weights gives for each request's
+    ``prompt + [first token]``, for the first ``SERVE_SLOTS`` requests
+    (the slots of the first admissions and decode window): the logits of
+    its first token (the prompt's last position) and of its first decode
+    step (the last position); and for every request the argmax and
+    top-two margin of its first token.  The weights are cast next to the
+    bf16 ones (~27 GB more)."""
+    import torch
+
+    from ray_tpu_torch.models.llama import llama_apply
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    p32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+               else v.float()) for k, v in params.items()}
+    heads, rows, first = [], [], []
+    with torch.no_grad():
+        for p, toks in zip(prompts, tokens):
+            ctx = torch.tensor([p + toks[:1]], device=params["embed"].device)
+            logits = llama_apply(p32, ctx, cfg32)[0, -2:].cpu()
+            heads.append(logits[0])
+            rows.append(logits[1])
+            top = logits[0].topk(2)
+            first.append({"argmax": int(top.indices[0]), "top2_margin":
+                          float(top.values[0] - top.values[1])})
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (torch.stack(heads[:SERVE_SLOTS]), torch.stack(rows[:SERVE_SLOTS]),
+            first)
+
+
+def phase_serve_mesh4(cfg, params, single, world=MESH4_RANKS,
+                      timeout=SERVE_MESH4_TIMEOUT_S):
+    """``world`` ranks (``serve_mesh4_rank``), one per card, started with
+    ``spawn`` and joined within ``timeout`` seconds (killed past it),
+    serve the ``serve`` phase's requests at full depth on each mesh of
+    ``SERVE_MESH4_MESHES``.  ``single`` is the single-card engine's
+    ``serve_run``.  Fails unless every rank reports; lists in
+    ``failures`` (``check_serve_mesh4`` raises on them) a mesh whose
+    ranks disagree, whose first tokens differ from the single-card
+    engine's, or whose first decode step's logits are farther (max-abs)
+    from an fp32 forward of the same weights than twice the single-card
+    bf16 engine's distance from it.  That distance is taken over the
+    slots whose first token equals the single card's: a slot whose first
+    token differs decodes from another input.  Reports the greedy tokens
+    equal to the single card's, each slot's and request's distances from
+    fp32 and from the single card (first token and first decode step),
+    decode tokens/s, per-rank weight and pool bytes and NCCL ms per
+    decode step."""
+    import multiprocessing
+    import queue as queue_mod
+    import socket
+
+    import torch
+
+    serve_tokens = single["token_ids"]
+    prompts = serve_prompts(cfg.vocab_size)
+    ref_first, ref32, first32 = fp32_reference(cfg, params, prompts,
+                                               serve_tokens)
+
+    def by_row(a, b):
+        return (a - b[:a.shape[0]]).abs().amax(dim=-1)
+
+    single_dist = float(by_row(single["first_decode_logits"], ref32).max())
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=serve_mesh4_rank,
+                         args=(r, world, port, results, prompts, cfg))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"serve_mesh4: {world - len(got)} ranks"
+                                     f" did not report within {timeout} s")
+            try:
+                rank, out = results.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in got]
+                if dead:
+                    raise AssertionError(f"serve_mesh4: ranks {dead} exited "
+                                         "without reporting")
+                continue
+            if "error" in out:
+                raise AssertionError(f"serve_mesh4 rank {rank}:\n"
+                                     f"{out['error']}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    report = {"ranks": world, "layers": cfg.num_layers,
+              "phase_s": time.perf_counter() - t0,
+              "single_card_max_abs_vs_fp32": single_dist,
+              "single_card_first_token_max_abs_vs_fp32_by_request": by_row(
+                  single["first_token_logits"], ref_first).tolist(),
+              "single_card_first_tokens": [t[:1] for t in serve_tokens],
+              "fp32_first_tokens": first32, "failures": []}
+    for name in SERVE_MESH4_MESHES:
+        runs = [got[r][name] for r in sorted(got)]
+        toks = runs[0]["token_ids"]
+        fail = report["failures"].append
+        if any(r["token_ids"] != toks for r in runs):
+            fail(f"{name}: ranks disagree")
+        if [t[:1] for t in toks] != [t[:1] for t in serve_tokens]:
+            fail(f"{name}: first tokens {[t[:1] for t in toks]}, the single "
+                 f"card's {[t[:1] for t in serve_tokens]}")
+        agree = [a[:1] == b[:1] for a, b in zip(toks, serve_tokens)]
+        decode = torch.from_numpy(runs[0]["first_decode_logits"])
+        rows = by_row(decode, ref32)
+        compared = [float(d) for d, a in zip(rows, agree) if a]
+        dist_mesh = max(compared) if compared else None
+        if dist_mesh is None or not dist_mesh <= 2 * single_dist:
+            fail(f"{name}: first decode step's logits {dist_mesh} from the "
+                 f"fp32 forward over the slots whose first tokens agree "
+                 f"({agree[:len(rows)]}), the single card's {single_dist}")
+        heads = torch.from_numpy(runs[0]["first_token_logits"])
+        same = sum(x == y for a, b in zip(toks, serve_tokens)
+                   for x, y in zip(a, b))
+        report[name] = {
+            "mesh": runs[0]["mesh"], "max_abs_vs_fp32": dist_mesh,
+            "max_abs_vs_fp32_by_slot": rows.tolist(),
+            "slot_first_token_agrees": agree[:len(rows)],
+            "max_abs_vs_single_card_by_slot": by_row(
+                decode, single["first_decode_logits"]).tolist(),
+            "first_token_max_abs_vs_fp32_by_request": by_row(
+                heads, ref_first).tolist(),
+            "first_token_max_abs_vs_single_card_by_request": by_row(
+                heads, single["first_token_logits"]).tolist(),
+            "first_tokens": [t[:1] for t in toks],
+            "tokens_equal_single_card": same,
+            "tokens_total": sum(len(t) for t in serve_tokens),
+            "k1_k2_k3_k4_launches_by_rank": [r["k1_k2_k3_k4_launches"]
+                                             for r in runs],
+            **{k: [r[k] for r in runs] for k in (
+                "decode_tokens_per_s", "weight_bytes", "pool_bytes",
+                "nccl_ms_per_decode_step", "peak_memory_gb", "wall_s")},
+            "rank0_decode_profile": runs[0]["decode_profile"]}
+    return report
+
+
+def check_serve_mesh4(report):
+    """Raise on ``phase_serve_mesh4``'s failures, after its line is
+    printed (so that a failing run still shows what it measured)."""
+    if report["failures"]:
+        raise AssertionError("serve_mesh4: " + "; ".join(report["failures"]))
+
+
 def small_mesh_reference(device="cuda", steps=3):
     """``small_train_reference``'s model, tokens and steps through a
     world-1 mesh on ``device`` (the params DTensors) against the plain
@@ -2878,8 +3248,20 @@ def main(argv) -> int:
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
     smi = phase_env()
-    if argv == ["mesh4"]:
-        emit({"phase": "mesh4", **phase_mesh4()})
+    if argv in (["mesh4"], ["serve_mesh4"]):
+        if argv == ["mesh4"]:
+            emit({"phase": "mesh4", **phase_mesh4()})
+        else:
+            cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
+                                      param_dtype=torch.bfloat16)
+            params = llama_init(cfg, seed=0, device="cuda")
+            serve = phase_serve(cfg, params)
+            emit({"phase": "serve", "decode_tokens_per_s":
+                  serve["decode_tokens_per_s"],
+                  "decode_profile": serve["decode_profile"]})
+            report = phase_serve_mesh4(cfg, params, serve)
+            emit({"phase": "serve_mesh4", **report})
+            check_serve_mesh4(report)
         print(smi, flush=True)
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2910,11 +3292,33 @@ def main(argv) -> int:
     if fwd["k1_launches"] != cfg.num_layers:
         raise AssertionError(f"K1 launched {fwd['k1_launches']} times in "
                              f"the forward, expected {cfg.num_layers}")
+    torch.cuda.reset_peak_memory_stats()
     serve = phase_serve(cfg, params)
-    colocated = serve.pop("token_ids")
+    single = {k: serve.pop(k) for k in ("first_token_logits",
+                                        "first_decode_logits")}
     emit({"phase": "serve", "model": "llama2_7b", "slots": SERVE_SLOTS,
-          "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, **serve,
+          "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK,
+          **{k: v for k, v in serve.items() if k != "token_ids"},
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    serve_mesh = phase_serve_mesh(cfg, params, serve)
+    for k in ("first_token_logits", "first_decode_logits", "token_ids"):
+        del serve_mesh[k]
+    emit({"phase": "serve_mesh", "model": "llama2_7b", "layers":
+          cfg.num_layers, "depth_cut": False, "slots": SERVE_SLOTS,
+          "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, **serve_mesh})
+    colocated = serve.pop("token_ids")
+    serve_mesh4 = None
+    if torch.cuda.device_count() >= MESH4_RANKS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_mesh4 = phase_serve_mesh4(cfg, params,
+                                        {**single, "token_ids": colocated})
+        emit({"phase": "serve_mesh4", "model": "llama2_7b", **serve_mesh4})
+        check_serve_mesh4(serve_mesh4)
+    else:
+        emit({"phase": "serve_mesh4", "ran": False, "why": (
+            f"{torch.cuda.device_count()} card(s) present; the phase needs "
+            f"{MESH4_RANKS}")})
     t0 = time.perf_counter()
     options = phase_serve_options(cfg, params)
     emit({"phase": "serve_options", "model": "llama2_7b",
@@ -3022,6 +3426,16 @@ def main(argv) -> int:
         return {path: run["launches"][name]
                 for path, run in train_paths.items()}
 
+    def serving(i):
+        """Kernel ``i``'s launches (K1-K4) on the serving mesh paths:
+        none, as on ``serve`` (the engine's attention is plain)."""
+        out = {"serve_mesh": serve_mesh["k1_k2_k3_k4_launches"][i]}
+        if serve_mesh4 is not None:
+            out["serve_mesh4"] = sum(
+                counts[i] for m in SERVE_MESH4_MESHES for counts in
+                serve_mesh4[m]["k1_k2_k3_k4_launches_by_rank"])
+        return out
+
     def gqa_bwd_row(kname):
         return {"ms": gqa_bwd[f"{kname}_ms"],
                 "bound_ms": gqa_bwd[f"{kname}_bound_ms"],
@@ -3040,7 +3454,7 @@ def main(argv) -> int:
                               "serve": serve["k1_launches"],
                               "disagg": disagg["k1_launches"],
                               "moe_forward": moe_fwd["k1_launches"],
-                              **by_path("K1")},
+                              **by_path("K1"), **serving(0)},
          "max_abs_err": row1["max_abs_err"], "ms": row1["ms"],
          "plain_ms": row1["plain_ms"], "bound_ms": row1["bound_ms"],
          "bound_by": row1["bound_by"], "library_ms": row1["library_ms"],
@@ -3051,7 +3465,7 @@ def main(argv) -> int:
         {"name": "K2 flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "195",
          "design": bwd["k2_design"], "launches": train["launches"]["K2"],
-         "launches_by_path": by_path("K2"),
+         "launches_by_path": {**by_path("K2"), **serving(1)},
          "max_abs_err": bwd["dq_max_abs_err"],
          "dq_flipped_vs_exact": bwd["dq_flipped_vs_exact"],
          "ms": bwd["k2_ms"],
@@ -3063,7 +3477,7 @@ def main(argv) -> int:
         {"name": "K3 flash_bwd_dkv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "232",
          "launches": train["launches"]["K3"],
-         "launches_by_path": by_path("K3"),
+         "launches_by_path": {**by_path("K3"), **serving(2)},
          "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
          "ms": bwd["k3_ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["k3_bound_ms"], "bound_by": bwd["k3_bound_by"],
@@ -3075,7 +3489,9 @@ def main(argv) -> int:
         {"name": "K4 remote_copy", "route": "cuda",
          "source": source + "remote_copy.cu",
          "replaces": "ray_tpu/experimental/channel/transport.py:285",
-         "design": k4["design"], "launches": ring["k4_launches"], "max_abs_err": k4["max_abs_err"],
+         "design": k4["design"], "launches": ring["k4_launches"],
+         "launches_by_path": {"ring": ring["k4_launches"], **serving(3)},
+         "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": k4["library_ms"], "bound_share": k4["bound_share"]}]})

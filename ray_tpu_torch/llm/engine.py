@@ -28,12 +28,17 @@ Counterpart of ``ray_tpu/llm/engine.py`` with the same structure:
   them (with their prefix-cache chain keys) into its own pool and
   resumes decoding with no re-prefill.
 
+* **Tensor- and pipeline-parallel serving** (``mesh=``): the weights
+  are placed by ``TP_INFERENCE_RULES`` (heads, kv heads, mlp and vocab
+  over ``tp``, layers over ``pp``) and the pool over its kv-head dim
+  (and its layer dim under ``pp``), as DTensors; every step runs on the
+  local shards (``parallel/local.py``), one engine per rank.  Axes other
+  than tp and pp hold replicas.  The host's decisions are the same on
+  every rank: the bandit's clock readings and the timing are rank 0's.
+
 PyTorch runs eagerly, so there is no jit; prefill lengths stay bucketed
 (``_bucket``) so padding is identical to the reference.  The decode loop
 is a Python loop of eager ops.
-
-Not in this slice (raises ``NotImplementedError`` naming where it
-comes): mesh sharding.
 """
 
 from __future__ import annotations
@@ -56,12 +61,6 @@ from ray_tpu_torch.models.paged_generation import (gather_prefix,
                                                    paged_verify_step,
                                                    prefill_suffix,
                                                    sample_token_batch)
-
-
-def _later(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {where} (ROADMAP.md, "
-        f"Queue 1)")
 
 
 class ByteTokenizer:
@@ -272,9 +271,6 @@ class LLMEngine:
                  spec_tokens: int = 0, spec_ngram: int = 2,
                  spec_lookup_window: int = 512, prefill_chunk: int = 0,
                  arm_clock=None):
-        if mesh is not None:
-            raise _later("mesh (tensor-parallel) serving",
-                         "the parallel slice")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer or default_tokenizer(cfg.vocab_size)
@@ -292,8 +288,18 @@ class LLMEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed + 1)
         self.kv_cache_dtype = kv_cache_dtype
-        self.pool = init_kv_pool(cfg, self.num_blocks, self.bs,
-                                 kv_dtype=kv_cache_dtype, device=self.device)
+        self.mesh = mesh
+        # what the steps run on: the params and pool themselves, or under
+        # a mesh this rank's local shards of them
+        self._shard = None
+        self._host_group = None
+        if mesh is None:
+            self.pool = init_kv_pool(cfg, self.num_blocks, self.bs,
+                                     kv_dtype=kv_cache_dtype,
+                                     device=self.device)
+            self._lparams, self._lpool = self.params, self.pool
+        else:
+            self._shard_over_mesh(mesh)
         self.blocks = _BlockManager(self.num_blocks)
         # multi-step window: K device steps chained without a host sync
         # (token/position stay device tensors), sampled tokens fetched
@@ -366,6 +372,73 @@ class LLMEngine:
         # own: its chunk's device time lands in that step's decode)
         self.timing = {"prefill_s": 0.0, "prefill_tokens": 0,
                        "decode_s": 0.0, "decode_tokens": 0}
+
+    def _shard_over_mesh(self, mesh) -> None:
+        """Tensor- and pipeline-parallel serving: the params placed by
+        ``TP_INFERENCE_RULES`` (``shard_tree``), the pool over its
+        kv-head dim (axis 3 of values and int8 scales) and, with
+        ``pp > 1``, its layer dim, each rank allocating only its slice.
+        The steps then run on the local shards with the collectives of
+        ``LocalShard``, never op by op on DTensors.  Refuses, as the
+        reference does, heads that do not divide by tp and layers that
+        do not divide by pp."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        from ray_tpu_torch.models.llama import llama_param_specs
+        from ray_tpu_torch.parallel.local import LocalShard, to_local, tree_map
+        from ray_tpu_torch.parallel.mesh import axis_size, compute_mesh
+        from ray_tpu_torch.parallel.sharding import (TP_INFERENCE_RULES,
+                                                     shard_layout,
+                                                     shard_tree)
+
+        cfg = self.cfg
+        cmesh = compute_mesh(mesh)  # a DeviceMesh, or TypeError
+        tp, pp = axis_size(cmesh, "tp"), axis_size(cmesh, "pp")
+        if tp > 1:
+            if cfg.num_kv_heads % tp:
+                raise ValueError(f"num_kv_heads={cfg.num_kv_heads} not "
+                                 f"divisible by tp={tp}")
+            if cfg.num_heads % tp:
+                raise ValueError(f"num_heads={cfg.num_heads} not divisible "
+                                 f"by tp={tp}")
+        if pp > 1 and cfg.num_layers % pp:
+            raise ValueError(f"num_layers={cfg.num_layers} not divisible by "
+                             f"pp={pp}")
+        self.params = shard_tree(self.params, llama_param_specs(cfg), cmesh,
+                                 TP_INFERENCE_RULES)
+        self._lparams = tree_map(to_local, self.params)
+        self._shard = LocalShard.of(cmesh)
+        self._lpool = init_kv_pool(cfg, self.num_blocks, self.bs,
+                                   kv_dtype=self.kv_cache_dtype,
+                                   device=self.device, shard=self._shard)
+        layout = shard_layout(cmesh, (("pp",), (), (), ("tp",)))
+        self.pool = {}
+        for name, t in self._lpool.items():
+            shape = list(t.shape)
+            shape[0] *= self._shard.pp_size
+            shape[3] *= self._shard.tp_size
+            self.pool[name] = DTensor.from_local(
+                t, cmesh, layout, run_check=False, shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+        ranks = sorted(cmesh.mesh.flatten().tolist())
+        if len(ranks) > 1:
+            # host values that every rank must agree on travel on a host
+            # group, so that agreeing costs no device sync
+            self._host_group = dist.new_group(ranks, backend="gloo")
+            self._rank0 = ranks[0]
+
+    def _agree(self, values: List[float]) -> List[float]:
+        """Rank 0's ``values`` on every rank of the mesh (the values
+        themselves without a mesh): host readings that decide what the
+        engine does, so that every rank decides alike."""
+        if self._host_group is None:
+            return values
+        import torch.distributed as dist
+
+        t = torch.tensor(values, dtype=torch.float64)
+        dist.broadcast(t, self._rank0, group=self._host_group)
+        return t.tolist()
 
     # -- request API --------------------------------------------------------
 
@@ -500,9 +573,10 @@ class LLMEngine:
                 tok_d, cur_d = self._dev
             toks = []
             for _ in range(window_k):  # device-chained: no host sync inside
-                tok_d, cur_d, self.pool = paged_decode_sample(
-                    self.params, tok_d, cur_d, self._tables_d, self.pool,
-                    self._gen, self._temps_d, cfg=self.cfg)
+                tok_d, cur_d, self._lpool = paged_decode_sample(
+                    self._lparams, tok_d, cur_d, self._tables_d,
+                    self._lpool, self._gen, self._temps_d, cfg=self.cfg,
+                    shard=self._shard)
                 toks.append(tok_d)
             self._dev = (tok_d, cur_d)
             # ONE host sync for the whole window_k * B window
@@ -525,6 +599,11 @@ class LLMEngine:
                     recorded += 1
             self.timing["decode_s"] += time.perf_counter() - t0
             self.timing["decode_tokens"] += recorded
+
+        if self._host_group is not None:
+            # the timing that stats() reports: rank 0's on every rank
+            self.timing["prefill_s"], self.timing["decode_s"] = self._agree(
+                [self.timing["prefill_s"], self.timing["decode_s"]])
 
         # 2. retire
         out = []
@@ -592,7 +671,11 @@ class LLMEngine:
         ids = np.zeros(P, np.int64)
         ids[:n] = req.blocks
         ids_d = torch.as_tensor(ids, device=self.device)
-        kv = {name: t[:, ids_d] for name, t in self.pool.items()}
+        kv = {name: t[:, ids_d] for name, t in self._lpool.items()}
+        if self._shard is not None:
+            # whole heads and layers, as on one card: what gathering the
+            # reference's sharded arrays returns
+            kv = {name: self._shard.pool_whole(t) for name, t in kv.items()}
         for bid in req.blocks:
             self.blocks.release(bid)
         req.blocks = []
@@ -680,8 +763,11 @@ class LLMEngine:
         # and on CUDA those duplicate indices would write in any order
         dst = torch.as_tensor(bids, dtype=torch.int64, device=self.device)
         try:
-            for name, t in self.pool.items():
-                t[:, dst] = kv[name][:, :n_ship].to(t.device)
+            for name, t in self._lpool.items():
+                src = kv[name][:, :n_ship]
+                if self._shard is not None:
+                    src = self._shard.pool_slice(src)  # whole heads shipped
+                t[:, dst] = src.to(t.device)
         except BaseException:
             # the scatter failed AFTER the blocks were allocated and
             # registered: the never-written blocks must be unpublished,
@@ -875,14 +961,15 @@ class LLMEngine:
         P = _bucket(len(hit_blocks), self.MB) if hit_blocks else 0
         prefix_ids = np.zeros(P, np.int32)
         prefix_ids[:len(hit_blocks)] = hit_blocks
-        pk, pv = gather_prefix(self.pool, torch.as_tensor(prefix_ids,
-                                                          device=dev))
-        logits, self.pool = prefill_suffix(
-            self.params, torch.tensor([pad_tok], dtype=torch.int32,
-                                      device=dev),
+        pk, pv = gather_prefix(self._lpool, torch.as_tensor(prefix_ids,
+                                                            device=dev))
+        logits, self._lpool = prefill_suffix(
+            self._lparams, torch.tensor([pad_tok], dtype=torch.int32,
+                                        device=dev),
             len(suffix), cached_len, pk, pv, cached_len,
             torch.as_tensor(dst_b, device=dev),
-            torch.as_tensor(dst_o, device=dev), self.pool, cfg=self.cfg)
+            torch.as_tensor(dst_o, device=dev), self._lpool, cfg=self.cfg,
+            shard=self._shard)
         return logits
 
     def _admit_chunk(self, i: int, req: Request, hit_blocks: List[int],
@@ -1002,6 +1089,7 @@ class LLMEngine:
         sample is discarded: in the reference it holds the compilation.
         Eager PyTorch compiles nothing, but the rule stays so that the
         same clock gives the same decisions in both packages."""
+        elapsed = self._agree([elapsed])[0]  # rank 0's clock
         if elapsed <= 0 or tokens <= 0:
             return
         if key not in self._arm_seen:
@@ -1093,10 +1181,10 @@ class LLMEngine:
         # reuse the resident tables mirror: _ensure_decode_blocks sets
         # _dev_dirty whenever it actually grows a table
         self._refresh_device_mirrors()
-        logits, self.pool = paged_verify_step(
-            self.params, torch.tensor(tokens, device=self.device),
+        logits, self._lpool = paged_verify_step(
+            self._lparams, torch.tensor(tokens, device=self.device),
             torch.tensor(self._cur_len, device=self.device), self._tables_d,
-            self.pool, cfg=self.cfg)
+            self._lpool, cfg=self.cfg, shard=self._shard)
         preds = torch.argmax(logits, -1).cpu().numpy()  # ONE sync: [B, G+1]
         arm_elapsed = self._arm_clock() - t_arm
         self.spec_stats["verify_steps"] += 1

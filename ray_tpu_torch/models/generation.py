@@ -98,20 +98,28 @@ def _gqa_attend_quant(q, k_q, ks, v_q, vs, mask):
 
 
 def _layer_with_cache(x, lp, layer_kv, *, cfg, cos, sin, mask,
-                      positions=None):
+                      positions=None, shard=None):
     """One decoder layer reading/returning its kv (cache-enabled twin of
     ``llama._decoder_layer``; same weights, ragged-mask attention).
 
     ``layer_kv(k, v)`` merges with the cache and returns either
     ``(k_all, v_all)`` (dense) or ``(k_q, ks, v_q, vs)`` (int8 codes and
-    per-token-head scales, routed through the scale-folded attend)."""
+    per-token-head scales, routed through the scale-folded attend).
+
+    The head counts come from the weights' shapes, so the body runs as
+    well on one tp shard's local weights (``num_heads / tp`` and
+    ``num_kv_heads / tp`` heads); ``shard`` (a ``LocalShard``) then sums
+    the row-parallel products of ``wo`` and ``w_down`` over tp before
+    each residual add (``LocalShard.row_parallel``), the all-reduces XLA
+    inserts in the reference.  Without it the body is the single-device
+    one."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = cfg.dtype
     y = rms_norm(x, lp["attn_norm"])
-    q = (y @ lp["wq"].to(dt)).reshape(b, s, cfg.num_heads, hd)
-    k = (y @ lp["wk"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (y @ lp["wv"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
+    q = (y @ lp["wq"].to(dt)).reshape(b, s, -1, hd)
+    k = (y @ lp["wk"].to(dt)).reshape(b, s, -1, hd)
+    v = (y @ lp["wv"].to(dt)).reshape(b, s, -1, hd)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     merged = layer_kv(k, v)  # merge with cache; full keys/vals
@@ -119,10 +127,11 @@ def _layer_with_cache(x, lp, layer_kv, *, cfg, cos, sin, mask,
         attn = _gqa_attend_quant(q, *merged, mask)
     else:
         attn = _gqa_attend(q, merged[0], merged[1], mask)
-    x = x + (attn.reshape(b, s, -1) @ lp["wo"].to(dt))
+    row = torch.matmul if shard is None else shard.row_parallel
+    x = x + row(attn.reshape(b, s, -1), lp["wo"].to(dt))
     y = rms_norm(x, lp["mlp_norm"])
     act = swiglu(y @ lp["w_gate"].to(dt), y @ lp["w_up"].to(dt))
-    return x + act @ lp["w_down"].to(dt), (k, v)
+    return x + row(act, lp["w_down"].to(dt)), (k, v)
 
 
 @torch.no_grad()

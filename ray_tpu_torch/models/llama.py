@@ -238,7 +238,7 @@ def stacked_layers(params) -> Iterator[Tuple[int, Dict[str, torch.Tensor]]]:
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
-                 mesh=None, rules=None):
+                 mesh=None, rules=None, shard=None):
     """Embedding gather in ``cfg.dtype``.  JAX's ``embed[tokens]`` wraps
     negative ids (``ids + V``) and clamps what is still out of range,
     where torch raises (CPU) or asserts on the device (CUDA), so both
@@ -251,11 +251,23 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     so the output is the activation layout (``RAY_TPU_LEGACY_SHARDING=1``
     drops the operand pins: the table keeps its param layout and the ids
     theirs, a plain batch replicated).  The gather itself runs per local
-    shard (``_gather_rows``)."""
+    shard (``_gather_rows``).
+
+    ``shard`` (a ``parallel.local.LocalShard``): the params are this
+    rank's local tp shards, the table a block of the vocab; each rank
+    gathers its block's rows (``_vocab_rows``) and the rows are summed
+    over tp."""
     from ray_tpu_torch.parallel.sharding import (as_global,
                                                  legacy_sharding_enabled)
 
     table = params["embed"]
+    if shard is not None and shard.tp_size > 1:
+        local = table.shape[0]
+        vocab = local * shard.tp_size
+        ids = torch.where(tokens < 0, tokens + vocab, tokens).clamp(
+            0, vocab - 1)
+        return shard.tp_sum(_vocab_rows(table, ids, shard.tp_rank * local)
+                            .to(cfg.dtype))
     if mesh is not None and legacy_sharding_enabled():
         table, tokens = as_global(table, mesh), as_global(tokens, mesh)
     elif mesh is not None:
@@ -299,12 +311,7 @@ def _gather_rows(table, ids, mesh):
     data = [i for i, p in enumerate(ids.placements) if isinstance(p, Shard)]
 
     def local(ids, table):
-        if not vocab:
-            return table[ids]
-        idx = ids - first
-        hit = (idx >= 0) & (idx < table.shape[0])
-        return table[idx.clamp(0, table.shape[0] - 1)] * hit[..., None].to(
-            table.dtype)
+        return _vocab_rows(table, ids, first) if vocab else table[ids]
 
     return local_map(
         local, out_placements=[Partial() if i in vocab else p
@@ -316,16 +323,31 @@ def _gather_rows(table, ids, mesh):
         device_mesh=mesh)(ids, table)
 
 
+def _vocab_rows(table, ids, first):
+    """``table[ids]`` for a table that holds the vocab's rows ``first``
+    on: the rows of the ids in it, zeros for the others (one shard of
+    Megatron's vocab-parallel lookup, whose sum over the shards is the
+    lookup)."""
+    idx = ids - first
+    hit = (idx >= 0) & (idx < table.shape[0])
+    return table[idx.clamp(0, table.shape[0] - 1)] * hit[..., None].to(
+        table.dtype)
+
+
 def lm_head(params, cfg: LlamaConfig, x: torch.Tensor, *, mesh=None,
-            rules=None) -> torch.Tensor:
+            rules=None, shard=None) -> torch.Tensor:
     """Final norm and the vocabulary projection, logits in fp32 (both
     operands upcast: exact for bf16 products, fp32 accumulation); under
-    a mesh constrained to ("batch", "seq", None)."""
+    a mesh constrained to ("batch", "seq", None).  With ``shard`` (the
+    params a rank's local tp shards) each rank projects onto its block
+    of the vocab and the blocks are gathered over tp into whole
+    logits."""
     x = _seq_whole(rms_norm(x, params["final_norm"]), mesh, rules)
     head = _weight(params["embed"].T if cfg.tie_embeddings
                    else params["lm_head"], cfg.dtype, mesh)
-    return _constrain(x.float() @ head.float(), mesh, "batch", "seq", None,
-                      rules=rules)
+    logits = _constrain(x.float() @ head.float(), mesh, "batch", "seq",
+                        None, rules=rules)
+    return logits if shard is None else shard.tp_gather(logits)
 
 
 def attention_block(x, lp, cfg: LlamaConfig, cos, sin, window=None, *,

@@ -22,6 +22,14 @@ call sites read as in the reference.
 JAX clamps out-of-range gather indices and torch does not (it raises on
 the CPU and trips a device-side assert on CUDA), so the indices JAX lets
 clamp are clamped explicitly; each place says so.
+
+Under a mesh (the engine's ``mesh=``) every function runs whole on one
+rank's local tensors, given its ``shard`` (``parallel.local.LocalShard``):
+the params are the rank's tp shards, the pool its slice
+``[L / pp, blocks, bs, KVH / tp, hd]``, and the collectives are the
+shard's (sums over tp in the lookup and after ``wo`` and ``w_down``, the
+head's gather over tp, the activation handed from stage to stage and the
+last stage's logits sent to every stage).  With no shard nothing changes.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ Pool = Dict[str, torch.Tensor]
 
 
 def init_kv_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
-                 kv_dtype=None, device=None) -> Pool:
+                 kv_dtype=None, device=None, shard=None) -> Pool:
     """Block pool; block 0 is the reserved scratch block.
 
     ``kv_dtype="int8"`` stores KV as symmetric per-(token, kv-head) int8
@@ -52,13 +60,19 @@ def init_kv_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
     Zero-filled on purpose: the scratch block and table-padding slots are
     gathered and then masked with -1e30, and a NaN or inf left there by an
     uninitialised allocation would turn ``0 * garbage`` into a NaN.
+
+    With ``shard`` the pool is that rank's slice: ``L / pp`` layers and
+    ``KVH / tp`` kv heads.
     """
     if kv_dtype not in (None, "auto", "int8"):
         raise ValueError(f"kv_dtype must be None/'auto'/'int8', got "
                          f"{kv_dtype!r}")
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, hd)
+    L, kvh = cfg.num_layers, cfg.num_kv_heads
+    if shard is not None:
+        L, kvh = L // shard.pp_size, kvh // shard.tp_size
+    shape = (L, num_blocks, block_size, kvh, hd)
     if kv_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -131,9 +145,36 @@ def _gather_kv(pool: Pool, i: int, block_tables, dt):
     return k, v
 
 
+def _stage_input(params, tokens, cfg: LlamaConfig, shard):
+    """The activation entering this rank's layers: the embedded tokens,
+    or under pp past the first stage what the stage before sends."""
+    if shard is None:
+        return embed_tokens(params, tokens, cfg)
+    return shard.stage_input(
+        lambda: embed_tokens(params, tokens, cfg, shard=shard),
+        (*tokens.shape, cfg.hidden_size), cfg.dtype, tokens.device)
+
+
+def _final_logits(params, cfg: LlamaConfig, x, shard, pick=None):
+    """``pick(lm_head(x))`` (the rows a function returns; all by
+    default).  Under pp each stage first sends its activation on, the
+    last stage computes the logits and they reach every stage."""
+    pick = pick or (lambda lg: lg)
+    if shard is None:
+        return pick(_lm_head(params, cfg, x))
+    shard.stage_output(x)
+    if shard.last_stage:
+        y = pick(_lm_head(params, cfg, x, shard=shard))
+    else:  # a buffer shaped as the picked logits
+        y = torch.empty(pick(torch.empty((*x.shape[:-1], cfg.vocab_size),
+                                         device="meta")).shape,
+                        device=x.device)
+    return shard.from_last_stage(y)
+
+
 @torch.no_grad()
 def paged_decode_step(params, token, cur_len, block_tables, pool: Pool,
-                      cfg: LlamaConfig):
+                      cfg: LlamaConfig, shard=None):
     """One token for every slot against block-table caches.
 
     token ``[b]``; cur_len ``[b]`` write positions; block_tables ``[b, MB]``
@@ -148,7 +189,7 @@ def paged_decode_step(params, token, cur_len, block_tables, pool: Pool,
     cos, sin = rope_frequencies(cfg.resolved_head_dim, MB * bs,
                                 cfg.rope_theta, device=dev)
     positions = cur_len[:, None]
-    x = embed_tokens(params, token[:, None], cfg)
+    x = _stage_input(params, token[:, None], cfg, shard)
     # logical position j visible iff j <= cur_len (own slot included)
     idx = torch.arange(MB * bs, device=dev)
     mask = idx[None, None, :] <= cur_len[:, None, None]
@@ -171,14 +212,14 @@ def paged_decode_step(params, token, cur_len, block_tables, pool: Pool,
             return tuple(a.reshape(b, MB * bs, *a.shape[3:]) for a in g)
 
         x, _ = _layer_with_cache(x, lp, merge, cfg=cfg, cos=cos, sin=sin,
-                                 mask=mask, positions=positions)
-    return _lm_head(params, cfg, x)[:, 0], pool
+                                 mask=mask, positions=positions, shard=shard)
+    return _final_logits(params, cfg, x, shard, lambda lg: lg[:, 0]), pool
 
 
 @torch.no_grad()
 def prefill_suffix(params, tokens, length, start_pos, prefix_k, prefix_v,
                    prefix_len, dst_blocks, dst_offsets, pool: Pool,
-                   cfg: LlamaConfig):
+                   cfg: LlamaConfig, shard=None):
     """b=1 prefill of a prompt *suffix* against a cached prefix.
 
     tokens ``[1, S]`` right-padded suffix; length: true suffix length;
@@ -195,7 +236,7 @@ def prefill_suffix(params, tokens, length, start_pos, prefix_k, prefix_v,
     cos, sin = rope_frequencies(cfg.resolved_head_dim, P + S, cfg.rope_theta,
                                 device=dev)
     positions = start_pos + torch.arange(S, device=dev)[None, :]
-    x = embed_tokens(params, tokens, cfg)
+    x = _stage_input(params, tokens, cfg, shard)
     sfx = torch.arange(S, device=dev)
     # keys = [prefix (P) | suffix (S)]; query i sees prefix j < prefix_len
     # and suffix j' <= i (within true suffix length)
@@ -220,14 +261,14 @@ def prefill_suffix(params, tokens, length, start_pos, prefix_k, prefix_v,
             return k_all, v_all
 
         x, _ = _layer_with_cache(x, lp, merge, cfg=cfg, cos=cos, sin=sin,
-                                 mask=mask, positions=positions)
-    logits = _lm_head(params, cfg, x)
-    return logits[:, length - 1], pool
+                                 mask=mask, positions=positions, shard=shard)
+    return _final_logits(params, cfg, x, shard,
+                         lambda lg: lg[:, length - 1]), pool
 
 
 @torch.no_grad()
 def paged_verify_step(params, tokens, cur_len, block_tables, pool: Pool,
-                      cfg: LlamaConfig):
+                      cfg: LlamaConfig, shard=None):
     """Speculative-decoding verify against block-table caches: feed S
     tokens per slot in ONE forward (``tokens[:, 0]`` is the pending
     last-accepted token, ``1..S-1`` the draft proposals).
@@ -251,7 +292,7 @@ def paged_verify_step(params, tokens, cur_len, block_tables, pool: Pool,
                                 device=dev)
     positions = cur_len[:, None] + torch.arange(S, device=dev)[None, :]
     safe_pos = torch.clamp(positions, max=ML - 1)
-    x = embed_tokens(params, tokens, cfg)
+    x = _stage_input(params, tokens, cfg, shard)
     idx = torch.arange(ML, device=dev)
     # query at global position p sees pool slots <= p (its own included);
     # earlier same-chunk tokens are visible because each layer stores the
@@ -271,14 +312,14 @@ def paged_verify_step(params, tokens, cur_len, block_tables, pool: Pool,
             return tuple(a.reshape(b, ML, *a.shape[3:]) for a in g)
 
         x, _ = _layer_with_cache(x, lp, merge, cfg=cfg, cos=cos, sin=sin,
-                                 mask=mask, positions=safe_pos)
-    return _lm_head(params, cfg, x), pool
+                                 mask=mask, positions=safe_pos, shard=shard)
+    return _final_logits(params, cfg, x, shard), pool
 
 
 @torch.no_grad()
 def paged_decode_sample(params, token, cur_len, block_tables, pool: Pool,
                         generator: torch.Generator, temps,
-                        cfg: LlamaConfig):
+                        cfg: LlamaConfig, shard=None):
     """One decode step with on-device sampling, shaped for host-free
     chaining: the next token and position stay device tensors, so the
     engine dispatches K steps back to back and fetches the sampled tokens
@@ -292,7 +333,7 @@ def paged_decode_sample(params, token, cur_len, block_tables, pool: Pool,
     ML = block_tables.shape[1] * pool["k"].shape[2]
     safe_cur = torch.clamp(cur_len, max=ML - 1)
     logits, pool = paged_decode_step(params, token, safe_cur, block_tables,
-                                     pool, cfg=cfg)
+                                     pool, cfg=cfg, shard=shard)
     nxt = sample_token_batch(logits, generator, temps)
     return nxt, cur_len + 1, pool
 

@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.parallel.local import to_local, tree_map
 
 # adamw's constants in ``default_optimizer`` (optax's eps, eps_root = 0)
 B1, B2, EPS = 0.9, 0.95, 1e-8
@@ -36,21 +37,6 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in tree_leaves(v)]
     return [tree]
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _local(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's local shard (the same storage), or the tensor itself."""
-    from torch.distributed.tensor import DTensor
-
-    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -67,7 +53,7 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
              for t in tensors]))
     squares = []
     for t in tensors:
-        sq = torch.linalg.vector_norm(_local(t), dtype=torch.float32) ** 2
+        sq = torch.linalg.vector_norm(to_local(t), dtype=torch.float32) ** 2
         if isinstance(t, DTensor):
             sq = sq / math.prod(n for n, p in zip(t.device_mesh.shape,
                                                   t.placements)
@@ -107,7 +93,7 @@ class AdamW:
                                    self.decay_steps)
 
     def init(self, params) -> Dict[str, Any]:
-        zeros = functools.partial(_tree_map, torch.zeros_like)
+        zeros = functools.partial(tree_map, torch.zeros_like)
         return {"count": 0, "mu": zeros(params), "nu": zeros(params)}
 
     @torch.no_grad()
@@ -128,7 +114,7 @@ class AdamW:
         bc2 = 1 - B2 ** (count + 1)
         for leaf in zip(params, grads, tree_leaves(state["mu"]),
                         tree_leaves(state["nu"])):
-            p, g, m, v = map(_local, leaf)
+            p, g, m, v = map(to_local, leaf)
             g.div_(div).mul_(mul)
             m.mul_(B1).add_(g, alpha=1 - B1)
             v.mul_(B2).addcmul_(g, g, value=1 - B2)
@@ -203,7 +189,7 @@ class Trainer:
         if params is None:
             params = self._init_fn(seed, self.device)
         else:
-            params = _tree_map(lambda t: t.to(self.device), params)
+            params = tree_map(lambda t: t.to(self.device), params)
         if self.mesh is not None:
             from ray_tpu_torch.parallel.sharding import shard_tree
 
@@ -286,7 +272,7 @@ class Trainer:
         for mb in self._microbatches(batch):
             mb_loss = self._loss_fn(state["params"], mb)
             mb_loss.backward()
-            loss += _local(mb_loss.detach())
+            loss += to_local(mb_loss.detach())
         grads = self._grads(leaves)
         if self.accum_steps > 1:
             loss /= self.accum_steps

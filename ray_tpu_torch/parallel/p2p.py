@@ -36,3 +36,15 @@ class RingShift(torch.autograd.Function):
     def backward(ctx, g):
         return _sendrecv(g, ctx.recv_from, ctx.send_to, ctx.group), \
             None, None, None
+
+
+def send(x: torch.Tensor, dst: int, group) -> None:
+    """Send ``x`` to global rank ``dst`` (one hop of a chain: the next
+    pipeline stage)."""
+    dist.send(x.contiguous(), dst, group=group)
+
+
+def recv(out: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``out``, filled with what global rank ``src`` sends."""
+    dist.recv(out, src, group=group)
+    return out

@@ -19,6 +19,7 @@ microbatches.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -125,8 +126,10 @@ def pipeline_apply(layer_fn: Callable[[torch.Tensor, Dict[str, Any]],
     dim L; each stage gathers its L / S layers whole (over the axes other
     than ``axis``).  ``x`` is a global-view ``[batch, ...]`` DTensor
     whose batch divides into ``num_microbatches``; it runs with its rows
-    split over dp/fsdp and everything else whole.  Returns the
-    activations after all L layers, a DTensor in that layout.
+    split over dp/fsdp and everything else whole, or, when a
+    microbatch's rows do not split over dp/fsdp, with its rows whole on
+    every rank.  Returns the activations after all L layers, a DTensor
+    in that layout.
     """
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
@@ -140,20 +143,24 @@ def pipeline_apply(layer_fn: Callable[[torch.Tensor, Dict[str, Any]],
     n_layers = next(iter(stacked_params.values())).shape[0]
     if n_layers % S != 0:
         raise ValueError(f"{n_layers} layers not divisible by {S} stages")
-    x_layout = shard_layout(mesh, (("dp", "fsdp"),))
+    names = mesh.mesh_dim_names
+    data = [n for n, s in zip(names, mesh.shape) if n in ("dp", "fsdp")
+            and s > 1]
+    # the reference splits the global batch into M microbatches and
+    # shards each over the data axes; a microbatch whose rows do not
+    # split over them runs with its rows whole on each rank of the stage
+    split = (b // M) % math.prod(axis_size(mesh, n) for n in data) == 0
+    x_layout = shard_layout(mesh, (("dp", "fsdp"),)) if split \
+        else [Replicate()] * len(names)
     x = as_global(x, mesh)
     if list(x.placements) != x_layout:
         x = x.redistribute(mesh, x_layout)
-    shards = x.to_local().shape[0]
-    if shards % M != 0:
-        raise ValueError(f"{shards} local rows not divisible by {M} "
-                         "microbatches")
-    names = mesh.mesh_dim_names
     stage = [Shard(0) if n == axis else Replicate() for n in names]
     # each stage's layers see only its rows: their grads are partial sums
-    # over the data axes, reduced when they leave the stage
-    stage_grad = [Partial() if n in ("dp", "fsdp") and s > 1 else pl
-                  for n, s, pl in zip(names, mesh.shape, stage)]
+    # over the data axes, reduced when they leave the stage (with the
+    # rows whole, each rank's grads are the whole ones)
+    stage_grad = [Partial() if n in data and split else pl
+                  for n, pl in zip(names, stage)]
     # only stage 0 reads the input: its grad is a sum over the stages
     x_grad = [Partial() if n == axis else pl
               for n, pl in zip(names, x_layout)]

@@ -216,8 +216,13 @@ def test_engine_sampling_is_seeded(models):
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}])
 def test_unported_engine_options_raise(models, kwargs):
+    """Every engine option is ported: ``mesh=`` serves over a
+    ``DeviceMesh`` (held against JAX's engine in
+    ``test_torch_mesh_serving.py``), and anything else given as the mesh
+    is refused by the parallel layer's ``TypeError``, never
+    ``NotImplementedError``."""
     jcfg, tcfg, tree, params = models
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         tengine.LLMEngine(tcfg, params, device="cpu", **kwargs)
 
 

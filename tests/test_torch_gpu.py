@@ -550,6 +550,40 @@ def test_mesh_trainer_steps_match_cpu_on_card():
 
 
 @pytest.mark.gpu
+def test_mesh_engine_matches_plain_engine_on_card():
+    """``LLMEngine(mesh=...)`` through a world-1 NCCL mesh (``tp=1``: the
+    weights and pool DTensors, the steps on their local tensors) on the
+    tiny bf16 model gives the plain engine's greedy tokens, with a
+    prefix hit and a preemption on both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the mesh engine runs over NCCL on "
+                    "the card")
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.parallel import MeshConfig, create_mesh
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    params = llama_init(cfg, seed=3, device="cuda")
+    shared = list(range(40, 52))
+    prompts = [shared + [7, 9, 11], shared + [200, 3], list(range(60, 83)),
+               [5, 9] * 6]
+    kw = dict(batch_slots=3, max_len=64, block_size=4, num_blocks=14,
+              seed=0)
+    sp = SamplingParams(temperature=0.0, max_tokens=20)
+    plain = LLMEngine(cfg, params, **kw)
+    want = [o.token_ids for o in plain.generate(prompts, sp)]
+    mesh = create_mesh(MeshConfig(dp=1, tp=1))
+    eng = LLMEngine(cfg, params, mesh=mesh, **kw)
+    got = [o.token_ids for o in eng.generate(prompts, sp)]
+    assert got == want
+    assert all(len(t) == 20 for t in got)
+    assert eng.stats()["prefix_cache"] == plain.stats()["prefix_cache"]
+    assert eng.stats()["prefix_cache"]["preemptions"] >= 1
+    assert type(eng.pool["k"]).__name__ == "DTensor"
+    eng.blocks.assert_integrity()
+
+
+@pytest.mark.gpu
 def test_moe_router_ties_on_card():
     """With an all-zero router every probability is 1/E and, as
     ``jax.lax.top_k`` does, the port routes every token to experts 0 and

@@ -269,11 +269,11 @@ def _attention_refs(a, mesh, variants):
     return out
 
 
-def _llama_refs(a, mesh, **cfg_kw):
+def _llama_refs(a, mesh, rows=None, **cfg_kw):
     cfg = _jax_cfg(**cfg_kw)
-    batch = {"tokens": a["tokens"], "mask": a["mask"]}
+    batch = {"tokens": a["tokens"][:rows], "mask": a["mask"][:rows]}
     logits = jax.jit(lambda p, t: jllama.llama_apply(p, t, cfg, mesh=mesh))(
-        a["llama"], a["tokens"][:, :-1])
+        a["llama"], batch["tokens"][:, :-1])
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p, b: jllama.llama_loss(p, b, cfg, mesh=mesh)))(
         a["llama"], batch)
@@ -344,6 +344,7 @@ def _jax_refs(a):
         "llama_fsdp_sp": _llama_refs(a, _mesh(dp=1, fsdp=2, sp=2)),
         "llama_pp": _llama_refs(a, _mesh(dp=1, fsdp=2, pp=2),
                                 pp_microbatches=4),
+        "llama_pp_b4": _llama_refs(a, _mesh(dp=1, fsdp=2, pp=2), rows=4),
         "train_fsdp": _trainer_refs(a, _mesh(dp=1, fsdp=-1)),
         "train_fsdp_tp": _trainer_refs(a, _mesh(dp=1, fsdp=-1, tp=2)),
         "train_fsdp_accum": _trainer_refs(a, _mesh(dp=1, fsdp=-1),
@@ -448,13 +449,15 @@ def test_per_shard_attention_matches_jax(runs, variant):
 
 @pytest.mark.parametrize("case", ["llama_dp", "llama_fsdp", "llama_fsdp_tp",
                                   "llama_fsdp_tp_legacy", "llama_fsdp_sp",
-                                  "llama_pp"])
+                                  "llama_pp", "llama_pp_b4"])
 def test_llama_on_mesh_matches_jax(runs, case):
     """``llama_apply`` logits and ``llama_loss`` (masked) with its grads on
     the presets dp, fsdp and fsdp_tp at world 4 ('flash' per shard under
     fsdp and fsdp_tp; fsdp_tp also with ``RAY_TPU_LEGACY_SHARDING=1`` on
-    both sides), on fsdp=2 x sp=2 ('auto' takes the ring) and on pp=2
-    with 4 microbatches, against JAX on the same mesh."""
+    both sides), on fsdp=2 x sp=2 ('auto' takes the ring) and on
+    fsdp=2 x pp=2 with 4 microbatches, at 8 rows and at 4 (the default
+    M = 2 * pp: a microbatch's one row does not split over fsdp), against
+    JAX on the same mesh."""
     got, want = _case(runs, case)
     assert got["params_are_dtensors"]
     _close(got["logits"], want["logits"], what="logits")

@@ -94,18 +94,19 @@ PER_SHARD = [("flash", "flash", True, None), ("ref", "ref", True, None),
              ("ref_window", "ref", True, 5)]
 
 
-def llama_case(inputs, config, masked=True, **cfg_kw):
+def llama_case(inputs, config, masked=True, rows=None, **cfg_kw):
     """``llama_apply`` logits and ``llama_loss`` with its grads on
-    ``config``'s mesh, from the converted weights; also whether the
-    params are DTensors."""
+    ``config``'s mesh, from the converted weights (the first ``rows``
+    rows of the batch, None = all); also whether the params are
+    DTensors."""
     cfg = _llama_cfg(**cfg_kw)
     mesh = mesh_for(config)
     params = _params(inputs, "llama", mesh, tllama.llama_param_specs(cfg))
-    batch = {"tokens": inputs["tokens"]}
+    batch = {"tokens": inputs["tokens"][:rows]}
     if masked:
-        batch["mask"] = inputs["mask"]
+        batch["mask"] = inputs["mask"][:rows]
     with torch.no_grad():
-        logits = tllama.llama_apply(params, inputs["tokens"][:, :-1], cfg,
+        logits = tllama.llama_apply(params, batch["tokens"][:, :-1], cfg,
                                     mesh=mesh)
     loss = tllama.llama_loss(params, batch, cfg, mesh=mesh)
     loss.backward()
@@ -223,6 +224,10 @@ CASES = {
     "llama_fsdp_sp": lambda i: llama_case(i, MeshConfig(dp=1, fsdp=2, sp=2)),
     "llama_pp": lambda i: llama_case(i, MeshConfig(dp=1, fsdp=2, pp=2),
                                      pp_microbatches=4),
+    # 4 rows in the default 2 * pp = 4 microbatches: a microbatch's one
+    # row does not split over fsdp=2
+    "llama_pp_b4": lambda i: llama_case(i, MeshConfig(dp=1, fsdp=2, pp=2),
+                                        rows=4),
     "train_fsdp": lambda i: trainer_case(i, MESH_PRESETS["fsdp"]),
     "train_fsdp_tp": lambda i: trainer_case(i, MESH_PRESETS["fsdp_tp"]),
     "train_fsdp_accum": lambda i: trainer_case(
