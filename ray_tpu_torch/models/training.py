@@ -184,13 +184,20 @@ class Trainer:
         """Fresh params from ``init_fn(seed)``, or the given ``params``
         (converted weights, say) moved to the trainer's device; under a
         mesh placed by the spec tree (``shard_tree``: every rank builds
-        or holds them whole, then keeps its shards); zero moments; step
-        0."""
+        or holds them whole, then keeps its shards) unless they are
+        DTensors placed already (``train.shard_params``); zero moments;
+        step 0."""
+        from torch.distributed.tensor import DTensor
+
+        placed = params is not None and all(
+            isinstance(t, DTensor) for t in tree_leaves(params))
         if params is None:
             params = self._init_fn(seed, self.device)
-        else:
+        elif placed and self.mesh is None:
+            raise ValueError("DTensor params for a Trainer with no mesh")
+        elif not placed:
             params = tree_map(lambda t: t.to(self.device), params)
-        if self.mesh is not None:
+        if self.mesh is not None and not placed:
             from ray_tpu_torch.parallel.sharding import shard_tree
 
             params = shard_tree(params, self.param_specs, self.mesh,

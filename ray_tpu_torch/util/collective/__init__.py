@@ -1,0 +1,34 @@
+"""Out-of-band collectives between worker processes (counterpart of
+``ray_tpu/util/collective/``): gloo for host tensors (``"tcp"``) and
+NCCL for device tensors (``"nccl"``), one rank per process, each group
+supervised (sequence numbers, flight recorder, watchdog abort)."""
+
+from ray_tpu_torch.util.collective.collective import (  # noqa: F401
+    allgather,
+    allreduce,
+    barrier,
+    broadcast,
+    destroy_collective_group,
+    flight_recorder_dump,
+    get_collective_group_size,
+    get_group_state,
+    get_rank,
+    init_collective_group,
+    is_group_initialized,
+    permute,
+    recv,
+    reduce,
+    reducescatter,
+    send,
+)
+from ray_tpu_torch.util.collective.collective_group.base_collective_group import (  # noqa: F401,E501
+    BaseGroup,
+)
+from ray_tpu_torch.util.collective.collective_group.torch_group import (  # noqa: F401,E501
+    TorchDistributedGroup,
+)
+from ray_tpu_torch.util.collective.types import (  # noqa: F401
+    Backend,
+    GroupState,
+    ReduceOp,
+)

@@ -1,0 +1,154 @@
+"""Public collective API: the process-local group registry and the module
+functions (counterpart of ``ray_tpu/util/collective/collective.py``).
+
+Each participating process calls ``init_collective_group`` (a train
+worker through ``train.get_context().collective_group()``), then the
+module-level ops.  Every group is wrapped in a :class:`~ray_tpu_torch.
+util.collective.supervision.SupervisedGroup`, so every public op carries
+a sequence number, lands in the flight recorder, and raises
+``CollectiveAbortError`` (instead of hanging) when the group aborts.
+``destroy_collective_group`` + ``init_collective_group`` is the
+supported re-init path after an abort.
+
+The reference's ``create_collective_group(actors)`` is not ported: it
+dispatches the join into actors, which the port does not have.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional
+
+from ray_tpu_torch.util.collective.supervision import (  # noqa: F401
+    SupervisedGroup,
+    flight_recorder_dump,
+)
+from ray_tpu_torch.util.collective.types import Backend, ReduceOp
+
+
+class GroupManager:
+    def __init__(self):
+        self._groups: Dict[str, Any] = {}
+        self._lock = threading.Lock()
+
+    def create(self, backend, world_size: int, rank: int, group_name: str,
+               timeout_s: Optional[float] = None):
+        from ray_tpu_torch.util.collective.collective_group.torch_group import (  # noqa: E501
+            TorchDistributedGroup,
+        )
+
+        backend = Backend.parse(backend)
+        with self._lock:
+            if group_name in self._groups:
+                raise RuntimeError(
+                    f"collective group {group_name!r} already initialized"
+                )
+        inner = TorchDistributedGroup(world_size, rank, group_name,
+                                      backend=backend, timeout_s=timeout_s)
+        g = SupervisedGroup(inner, timeout_s=timeout_s,
+                            backend=backend.value)
+        with self._lock:
+            self._groups[group_name] = g
+        return g
+
+    def get(self, group_name: str):
+        g = self._groups.get(group_name)
+        if g is None:
+            raise RuntimeError(
+                f"collective group {group_name!r} is not initialized in "
+                f"this process; call init_collective_group first"
+            )
+        return g
+
+    def exists(self, group_name: str) -> bool:
+        return group_name in self._groups
+
+    def destroy(self, group_name: str):
+        with self._lock:
+            g = self._groups.pop(group_name, None)
+        if g is not None:
+            g.destroy_group()
+
+
+_group_mgr = GroupManager()
+
+
+def init_collective_group(
+    world_size: int,
+    rank: int,
+    backend: str = "tcp",
+    group_name: str = "default",
+    timeout_s: Optional[float] = None,
+) -> None:
+    """Initialize this process's membership in a collective group.
+
+    ``backend`` is ``"tcp"`` (also ``"gloo"``: host tensors) or
+    ``"nccl"`` (tensors on this process's card).  ``timeout_s`` bounds
+    rendezvous AND every op on this member (abort past it); default from
+    ``RAY_TPU_TORCH_COLLECTIVE_TIMEOUT`` or 120 s.  Rendezvous goes
+    through the run's KV (``RAY_TPU_TORCH_KV``).
+    """
+    _group_mgr.create(backend, world_size, rank, group_name,
+                      timeout_s=timeout_s)
+
+
+def is_group_initialized(group_name: str = "default") -> bool:
+    return _group_mgr.exists(group_name)
+
+
+def destroy_collective_group(group_name: str = "default") -> None:
+    _group_mgr.destroy(group_name)
+
+
+def get_rank(group_name: str = "default") -> int:
+    return _group_mgr.get(group_name).rank
+
+
+def get_collective_group_size(group_name: str = "default") -> int:
+    return _group_mgr.get(group_name).world_size
+
+
+def get_group_state(group_name: str = "default") -> str:
+    """Supervision state of this process's membership (READY | ABORTED).
+    A destroyed group is removed from the registry entirely, so querying
+    it raises RuntimeError like any other uninitialized name."""
+    return _group_mgr.get(group_name).state.value
+
+
+def allreduce(tensor, group_name: str = "default", op=ReduceOp.SUM):
+    return _group_mgr.get(group_name).allreduce(tensor, op)
+
+
+def barrier(group_name: str = "default") -> None:
+    _group_mgr.get(group_name).barrier()
+
+
+def reduce(tensor, dst_rank: int = 0, group_name: str = "default",
+           op=ReduceOp.SUM):
+    return _group_mgr.get(group_name).reduce(tensor, dst_rank, op)
+
+
+def broadcast(tensor, src_rank: int = 0, group_name: str = "default"):
+    return _group_mgr.get(group_name).broadcast(tensor, src_rank)
+
+
+def allgather(tensor, group_name: str = "default"):
+    return _group_mgr.get(group_name).allgather(tensor)
+
+
+def reducescatter(tensor, group_name: str = "default", op=ReduceOp.SUM):
+    return _group_mgr.get(group_name).reducescatter(tensor, op)
+
+
+def send(tensor, dst_rank: int, group_name: str = "default", tag: int = 0):
+    return _group_mgr.get(group_name).send(tensor, dst_rank, tag)
+
+
+def recv(shape=None, dtype=None, src_rank: int = 0,
+         group_name: str = "default", tag: int = 0):
+    return _group_mgr.get(group_name).recv(shape, dtype, src_rank, tag)
+
+
+def permute(tensor, perm, group_name: str = "default"):
+    """``ppermute`` over the group: ``perm`` is ``[(src, dst), ...]``."""
+    return _group_mgr.get(group_name).permute(tensor, perm)

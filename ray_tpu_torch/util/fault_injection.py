@@ -37,6 +37,12 @@ site                        guards
 ==========================  =================================================
 ``llm.kv_ship``             every KV-handoff write on the prefill side
                             (``llm/kv_transfer.py``)
+``collective.op``           every supervised collective op, before dispatch
+                            (``util/collective/supervision.py``)
+``collective.rendezvous``   the epoch/leader KV legs of group rendezvous
+                            (``collective_group/torch_group.py``)
+``train.checkpoint.commit`` between checkpoint staging and rename-commit
+                            (``train/checkpoint_manager.py``)
 ==========================  =================================================
 
 Three kinds are special:

@@ -62,7 +62,20 @@ def test_import_leaves_jax_and_reference_unloaded():
         "ray_tpu_torch.experimental.channel.transport, "
         "ray_tpu_torch.llm.kv_transfer, ray_tpu_torch.util.fault_injection, "
         "ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, "
-        "ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.pipeline\n"
+        "ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.pipeline, "
+        "ray_tpu_torch.exceptions, ray_tpu_torch._private.accelerators, "
+        "ray_tpu_torch._private.net, ray_tpu_torch._private.kv, "
+        "ray_tpu_torch._private.durations, ray_tpu_torch.util.collective, "
+        "ray_tpu_torch.util.collective.types, "
+        "ray_tpu_torch.util.collective.collective, "
+        "ray_tpu_torch.util.collective.supervision, "
+        "ray_tpu_torch.util.collective.collective_group.base_collective_group, "
+        "ray_tpu_torch.util.collective.collective_group.torch_group, "
+        "ray_tpu_torch.train, ray_tpu_torch.train.config, "
+        "ray_tpu_torch.train.policies, ray_tpu_torch.train.checkpoint, "
+        "ray_tpu_torch.train.checkpoint_manager, "
+        "ray_tpu_torch.train.worker_group, ray_tpu_torch.train.session, "
+        "ray_tpu_torch.train.controller, ray_tpu_torch.train.trainer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
