@@ -268,9 +268,20 @@ SERVE_MESH4_MESHES = {"tp4": {"dp": 1, "tp": 4},
                       "dp2_pp2": {"dp": 2, "pp": 2}}
 SERVE_MESH4_TIMEOUT_S = 600
 # the four-card phases a run may name alone (``python3 chip_smoke.py
-# serve_mesh4 mesh4 trainer4``); trainer4 runs mesh4 first, whose first
-# loss it is held to
-FOUR_CARD_PHASES = {"serve_mesh4", "mesh4", "trainer4"}
+# serve_mesh4 mesh4 trainer4 health4``); trainer4 runs mesh4 first, whose
+# first loss it is held to
+FOUR_CARD_PHASES = {"serve_mesh4", "mesh4", "trainer4", "health4"}
+# vit_train: ViT-B/16 at its published width, images per step and timed
+# steps
+VIT_BATCH = 256
+VIT_STEPS = 3
+# the health plane end to end: steps and step seconds of the reference's
+# loop on three host slots; on four cards steps and each step's bf16
+# matmuls of HEALTH4_N square (~70 ms).  The degraded steps must outlast
+# the detection: each probe is a new process (~10 s on the card
+# machine's host), two per confirmation
+HEALTH_STEPS, HEALTH_STEP_S = 100, 0.2
+HEALTH4_STEPS, HEALTH4_MATMULS, HEALTH4_N = 400, 40, 8192
 # Mixtral-8x7B: the forward in bf16 weights, and the train step in fp32
 # params + AdamW; the forward keeps MOE_RESERVE bytes of the card free
 MOE_FORWARD_LAYERS = 24
@@ -1723,7 +1734,7 @@ def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps,
     """``steps`` fp32 train steps of ``make_trainer(cfg)`` from ``params``
     on ``device`` and of ``make_reference(cfg)`` (default the same
     function) through the plain versions on the CPU, from the same
-    weights and tokens.  Loss to rtol 1e-5 and grad norm to 1e-4 (fp32
+    weights and tokens (a token tensor, or a whole batch dict).  Loss to rtol 1e-5 and grad norm to 1e-4 (fp32
     sums in another order).  Params: the difference of the two updates
     has at most 1e-3 of the update's L2 norm, and no element differs by
     more than Adam's bound of one step each way (2 * the sum of the
@@ -1738,6 +1749,7 @@ def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps,
     from ray_tpu_torch.models.training import default_optimizer, tree_leaves
 
     opt = default_optimizer(lr=1e-3, warmup=1, decay_steps=10)
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
     runs = []
     for make, dev in ((make_trainer, device),
                       (make_reference or make_trainer, "cpu")):
@@ -1746,7 +1758,7 @@ def train_vs_cpu(cfg, params, make_trainer, tokens, device, steps,
         counts = _launch_counts()
         metrics = []
         for _ in range(steps):
-            state, m = tr.step(state, {"tokens": tokens})
+            state, m = tr.step(state, batch)
             metrics.append([float(m["loss"]), float(m["grad_norm"])])
         launched = [now - before for now, before in zip(_launch_counts(),
                                                         counts)]
@@ -3746,6 +3758,402 @@ def phase_moe_forward(device="cuda", want_layers=MOE_FORWARD_LAYERS,
             "tflops_by_active_top2_flops": active / forward_s / 1e12}
 
 
+def vit_train_flops_per_image(cfg) -> float:
+    """Model FLOPs per image of a ViT train step as the JAX vision bench
+    counts them (``benchmarks/vision_train_bench.py:70-77``): 6 per
+    matmul parameter use per token (forward 2, backward 4), plus the
+    attention's products; the remat replay is not counted."""
+    tokens = cfg.num_patches + 1
+    per_layer = 4 * cfg.hidden_size ** 2 + 2 * cfg.hidden_size * cfg.mlp_dim
+    dense = 6 * (per_layer * cfg.num_layers
+                 + cfg.patch_dim * cfg.hidden_size
+                 + cfg.hidden_size * cfg.num_classes) * tokens
+    attn = 12 * cfg.num_layers * tokens * tokens * cfg.hidden_size
+    return float(dense + attn)
+
+
+def vit_batch(cfg, batch, device, seed):
+    """``batch`` random images (standard normal, fp32, [b, H, W, C]) and
+    labels from one generator seeded ``seed`` on ``device``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    images = torch.randn((batch, cfg.image_size, cfg.image_size,
+                          cfg.num_channels), generator=gen, device=device)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen,
+                           device=device)
+    return {"images": images, "labels": labels}
+
+
+def phase_vit_small_reference(device="cuda", steps=3):
+    """``ViTConfig.tiny`` in fp32 trains ``steps`` steps on ``device`` and
+    on the CPU from the same params (drawn from seed 9, then carried
+    through the converter's numpy layout and back) and batch
+    (``train_vs_cpu``: losses to rtol 1e-5, grad norms to 1e-4).  The
+    attention is 'ref', as the reference pins it: K1, K2 and K3 must not
+    launch."""
+    import torch
+
+    from ray_tpu_torch.models.convert import (vit_params_from_jax,
+                                              vit_params_to_jax)
+    from ray_tpu_torch.models.vit import ViTConfig, make_vit_trainer, vit_init
+
+    cfg = ViTConfig.tiny(dtype=torch.float32)
+    params = vit_params_from_jax(vit_params_to_jax(vit_init(
+        cfg, seed=9, device="cpu")), cfg, device="cpu")
+    out = train_vs_cpu(cfg, params, make_vit_trainer,
+                       vit_batch(cfg, 8, "cpu", seed=10), device, steps)
+    if out["train_k1_k2_k3_launches"] != [0, 0, 0]:
+        raise AssertionError(f"ViT: K1/K2/K3 launched "
+                             f"{out['train_k1_k2_k3_launches']} times with "
+                             "the attention pinned to 'ref'")
+    return {"model": "ViT tiny fp32", "steps": steps, **out}
+
+
+def phase_vit_train(device="cuda", batch=VIT_BATCH, steps=VIT_STEPS,
+                    warmup=2):
+    """``make_vit_trainer`` at ViT-B/16's published width
+    (``ViTConfig.vit_b16()``: bf16 compute, fp32 params and AdamW,
+    ``default_optimizer(warmup=1, decay_steps=1000)``) on ``batch``
+    random images and labels from seed 4: ``warmup`` warm-up steps,
+    ``steps`` timed steps ended by ``synchronize()``, one step under the
+    profiler and one optimizer update alone.  Returns step ms, images/s,
+    MFU by the vision bench's FLOPs against the bf16 peak, peak memory,
+    the idle share, device ms by class and the top kernels; fails unless
+    every loss and grad norm is finite and K1, K2 and K3 never launch
+    (the attention is 'ref', as the reference's)."""
+    import torch
+
+    from ray_tpu_torch.models.training import default_optimizer, tree_leaves
+    from ray_tpu_torch.models.vit import ViTConfig, make_vit_trainer
+
+    cfg = ViTConfig.vit_b16()
+    tr = make_vit_trainer(cfg, optimizer=default_optimizer(
+        warmup=1, decay_steps=1000), device=device)
+    t0 = time.perf_counter()
+    state = tr.init_state(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = vit_batch(cfg, batch, device, seed=4)
+    _zero_launches()
+    losses, grad_norms = [], []
+    for _ in range(warmup):
+        state, m = tr.step(state, data)
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = tr.step(state, data)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    losses.append(float(m["loss"]))
+    grad_norms.append(float(m["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_name, streams = device_profile(lambda: tr.step(state, data))
+    if not streams:
+        raise AssertionError("vit_train: the profiler recorded no device "
+                             "activity")
+    _, top = rank_kernels(by_name)
+    leaves = tree_leaves(state["params"])
+    grads = [torch.zeros_like(p) for p in leaves]
+    optimizer_ms = cuda_ms(lambda: tr.optimizer.update(
+        grads, state["opt_state"], leaves), 2)
+    launches = dict(zip(("K1", "K2", "K3"), _launch_counts()))
+    per_image = vit_train_flops_per_image(cfg)
+    out = {"model": "vit_b16", "params_m": cfg.num_params() / 1e6,
+           "image_size": cfg.image_size, "patch": cfg.patch_size,
+           "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_heads, "mlp": cfg.mlp_dim,
+           "classes": cfg.num_classes, "depth_cut": False, "batch": batch,
+           "remat": "whole layer (the reference's)",
+           "step_ms": 1e3 * step_s, "images_per_s": batch / step_s,
+           "gflops_per_image": per_image / 1e9,
+           "train_flops_per_step": per_image * batch,
+           "mfu": per_image * batch / step_s / PEAK_FLOPS["bfloat16"],
+           "peak_memory_gb": peak_gb, "init_s": init_s,
+           "warmup_steps": warmup, "timed_steps": steps,
+           "launches": launches, "losses": losses,
+           "grad_norms": grad_norms, **streams,
+           **idle_share(streams, 1e3 * step_s),
+           "device_ms_by_class": device_ms_by_class(by_name),
+           "optimizer_ms": optimizer_ms, "top_kernels_ms": top}
+    if launches != {"K1": 0, "K2": 0, "K3": 0}:
+        raise AssertionError(f"vit_train: K1/K2/K3 launched {launches} "
+                             "times with the attention pinned to 'ref'")
+    if not all(math.isfinite(x) for x in losses + grad_norms):
+        raise AssertionError(f"vit_train: losses {losses}, grad norms "
+                             f"{grad_norms}")
+    return out
+
+
+def health_probe_check():
+    """In a process bound to ``cuda:0`` (``run_bound``): the health
+    probe's payload, then ``device_memory_stats()`` with 1 GiB allocated
+    on the card."""
+    import torch
+
+    from ray_tpu_torch._private.health_plane import _probe_payload
+    from ray_tpu_torch.util.health import device_memory_stats
+
+    probe = _probe_payload()
+    block = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    rows = device_memory_stats()
+    del block
+    return {"probe": probe, "memory_rows": rows,
+            "cards": torch.cuda.device_count()}
+
+
+def _health_marker(side_dir, name, info):
+    path = os.path.join(side_dir, name)
+    with open(path + ".tmp", "w") as f:
+        json.dump(info, f)
+    os.replace(path + ".tmp", path)
+
+
+def health_loop(config):
+    """The reference's end-to-end loop (``tests/test_health.py:665``) in
+    one worker: ``step_s`` of compute behind the ``train.work`` fault
+    site, then a file barrier over the world standing in for the
+    collective, its wait booked to ``collective_wait``; the step ledger
+    publishes every step, and every step reports a checkpoint.  On a card
+    (``config["matmuls"]``) the compute is that many bf16 matmuls of
+    ``config["n"]`` square and the barrier a supervised NCCL allreduce,
+    its device wait booked to ``collective_wait`` after the op's own.
+    Checkpoints go beside ``config["side_dir"]``."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util.fault_injection import fault_point
+
+    torch.set_num_threads(1)
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    ledger = ctx.step_ledger()
+    ledger._PUBLISH_EVERY_S = 0.0  # publish at every step boundary
+    start = 0
+    ck = ctx.get_checkpoint()
+    if ck is not None:
+        with open(os.path.join(ck.path, "state.json")) as f:
+            start = json.load(f)["step"] + 1
+    gpu = config.get("matmuls")
+    if gpu:
+        dev = ctx.get_device()
+        gen = torch.Generator(device=dev).manual_seed(rank)
+        a, b = (torch.randn(config["n"], config["n"], generator=gen,
+                            device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        x = torch.ones(1 << 20, device=dev)
+        group = ctx.collective_group("nccl")
+    for step in range(start, config["steps"]):
+        with ledger.step():
+            with ledger.bucket("compute"):
+                fault_point("train.work")  # the degradable compute path
+                if gpu:
+                    for _ in range(config["matmuls"]):
+                        a @ b
+                    torch.cuda.synchronize()
+                else:
+                    time.sleep(config["step_s"])
+            _health_marker(config["side_dir"], f"s{step}-w{world}-r{rank}",
+                           {"step": step, "rank": rank, "world": world,
+                            "node": ctx.get_node_id(), "t": time.time()})
+            t0 = time.monotonic()
+            if gpu:
+                col.allreduce(x, group)
+                t0 = time.monotonic()
+                torch.cuda.synchronize()
+            else:
+                want = {f"s{step}-w{world}-r{r}" for r in range(world)}
+                while time.monotonic() - t0 < 60:
+                    if want <= set(os.listdir(config["side_dir"])):
+                        break
+                    time.sleep(0.01)
+            ledger.note("collective_wait", time.monotonic() - t0)
+        ckpt = os.path.join(os.path.dirname(config["side_dir"]), "ckpt",
+                            f"w{world}-r{rank}-s{step}")
+        os.makedirs(ckpt)
+        with open(os.path.join(ckpt, "state.json"), "w") as f:
+            json.dump({"step": step}, f)
+        train.report({"step": step, "world": world,
+                      "node": ctx.get_node_id()},
+                     checkpoint=train.Checkpoint(ckpt))
+
+
+def health_run(workers, use_gpu, victim_rank, config, min_workers,
+               probe_timeout_s):
+    """The health plane's loop end to end: ``health_loop`` over
+    ``workers`` workers under ``ElasticScalingPolicy(min_workers,
+    workers)`` and ``FailureConfig(max_failures=0)``, a ``HealthMonitor``
+    on the run (interval 0.5 s, 2 windows, probe factor 1.5), and
+    ``slow:3`` armed on the unit of rank ``victim_rank`` (``train.work``
+    and ``health.probe``) once that rank has finished step 2.  Fails
+    unless the run finishes every step, the unit is quarantined, and the
+    group after the drain runs at ``workers - 1`` ranks off it.  Returns
+    the monitor's summary, detection-to-quarantine and
+    degradation-to-recovery seconds, and every probe's result."""
+    import shutil
+    import tempfile
+    import threading
+
+    from ray_tpu_torch._private.health_plane import HealthMonitor, node_health
+    from ray_tpu_torch._private.node_faults import arm_node_fault
+    from ray_tpu_torch.train import (ElasticScalingPolicy, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchTrainer)
+
+    tmp = tempfile.mkdtemp(prefix="health_")
+    side = os.path.join(tmp, "side")
+    os.makedirs(side)
+    trainer = TorchTrainer(
+        health_loop, train_loop_config={"side_dir": side, **config},
+        scaling_config=ScalingConfig(num_workers=workers, use_gpu=use_gpu),
+        run_config=RunConfig(name="health-run", storage_path=tmp,
+                             failure_config=FailureConfig(max_failures=0)),
+        scaling_policy=ElasticScalingPolicy(min_workers, workers))
+    armed = {}
+
+    def saboteur():
+        marker = os.path.join(side, f"s2-w{workers}-r{victim_rank}")
+        deadline = time.time() + 300
+        while time.time() < deadline and "node" not in armed:
+            if os.path.exists(marker) and trainer.controller is not None:
+                with open(marker) as f:
+                    node = json.load(f)["node"]
+                acks = [arm_node_fault(trainer.controller.kv, node, site,
+                                       duration_s=600.0, exc="slow:3",
+                                       timeout=10)["armed"]
+                        for site in ("train.work", "health.probe")]
+                armed.update(node=node, t=time.time(), acks=acks)
+            time.sleep(0.05)
+
+    mon = HealthMonitor(trainer=trainer, interval_s=0.5, suspect_windows=2,
+                        probe_factor=1.5, probe_timeout_s=probe_timeout_s)
+    mon.start()
+    thread = threading.Thread(target=saboteur, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+    finally:
+        mon.stop()
+        thread.join(timeout=5)
+    fit_s = time.perf_counter() - t0
+    try:
+        markers = {}
+        for name in os.listdir(side):
+            if not name.endswith(".tmp"):
+                with open(os.path.join(side, name)) as f:
+                    markers[name] = json.load(f)
+        ladder = node_health(trainer.controller.kv)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = mon.summary()
+    after = [m for n, m in markers.items() if f"-w{workers - 1}-" in n]
+    steps = [m["step"] for m in result.metrics_history]
+    out = {"workers": workers, "use_gpu": use_gpu, "fit_s": fit_s,
+           "armed": armed, "quarantined": summary["quarantined"],
+           "detection_to_quarantine_s":
+               summary.get("detection_to_quarantine_s"),
+           "degradation_to_recovery_s": (min(m["t"] for m in after)
+                                         - armed["t"]) if after and armed
+           else None,
+           "nodes_after_drain": sorted({m["node"] for m in after}),
+           "drain_restarts": trainer.controller.drain_restarts,
+           "failures_charged": trainer.controller._ctx.errors_seen,
+           "ladder": {n: r["health"] for n, r in ladder.items()},
+           "counts": summary["counts"], "probes": mon.probes,
+           "events": [{k: v for k, v in e.items() if k != "t"}
+                      for e in summary["events"]],
+           "last_step": steps[-1] if steps else None}
+    if not (result.error is None and armed and steps
+            and steps[-1] == config["steps"] - 1
+            and armed["node"] in summary["quarantined"]
+            and ladder.get(armed["node"], {}).get("health") == "QUARANTINED"
+            and after and armed["node"] not in out["nodes_after_drain"]
+            and len(out["nodes_after_drain"]) == workers - 1
+            and out["failures_charged"] == 0):
+        raise AssertionError(f"health run on {workers} "
+                             f"{'cards' if use_gpu else 'host slots'}: "
+                             f"error {result.error}, {out}")
+    return out
+
+
+def phase_health():
+    """(a) ``_probe_payload`` in a process bound to ``cuda:0``: its digest
+    must equal the host's ``sdc_digest(seed=7)``; with one card it pings
+    nothing (with more, every landed tensor of its ring ping must be
+    bit-equal); ``device_memory_stats()`` there with 1 GiB allocated must
+    give ``cuda:0``'s row with at least 1 GiB in use.  (b) ``health_run``
+    over three host workers (the reference's loop, 0.2 s steps)."""
+    import torch
+
+    from ray_tpu_torch._private.health_plane import run_bound
+    from ray_tpu_torch.util.health import sdc_digest
+
+    t0 = time.perf_counter()
+    got = run_bound("cuda:0", health_probe_check, timeout=120)
+    bound_s = time.perf_counter() - t0
+    if got is None:
+        raise AssertionError("health: the probe bound to cuda:0 did not "
+                             "answer in 120 s")
+    probe, rows = got["probe"], got["memory_rows"]
+    row = next((r for r in rows if r["device"] == "cuda:0"), {})
+    cards = torch.cuda.device_count()
+    pinged = "ppermute_s" in probe
+    ok = (probe["digest"] == sdc_digest(seed=7)
+          and probe["node_id"] == "cuda:0"
+          and row.get("bytes_in_use", 0) >= 1 << 30
+          and (not pinged if cards == 1 else
+               probe["ping_bit_equal"] and probe["ping_k4_launches"]
+               == probe["ping_hops"] == cards))
+    probe_out = {"bound_call_s": bound_s, "cards": cards,
+                 "digest_equal_host": probe["digest"] == sdc_digest(seed=7),
+                 "elapsed_s": probe["elapsed_s"], "pinged": pinged,
+                 **{k: probe[k] for k in ("ppermute_s", "ping_hops",
+                                          "ping_k4_launches",
+                                          "ping_bit_equal") if k in probe},
+                 "memory_row": row}
+    if not ok:
+        raise AssertionError(f"health: the bound probe {got}")
+    run = health_run(3, False, 1, {"steps": HEALTH_STEPS,
+                                   "step_s": HEALTH_STEP_S},
+                     min_workers=2, probe_timeout_s=30.0)
+    return {"probe_cuda0": probe_out, "host_slots": run}
+
+
+def phase_health4():
+    """``health_run`` over four workers, one card each: each step
+    ``HEALTH4_MATMULS`` bf16 matmuls of ``HEALTH4_N`` square under
+    ``train.work``, then a supervised NCCL allreduce; ``slow:3`` armed on
+    card 2.  The monitor must confirm card 2 by the probe ratio and
+    quarantine it, and the run must re-mesh onto cards 0, 1 and 3 under
+    ``ElasticScalingPolicy(3, 4)``.  Every probe process sees the four
+    cards and pings them: K4 must launch once per hop (four per probe)
+    and every landed tensor must be bit-equal."""
+    memory_before_spawn("health4")
+    run = health_run(MESH4_RANKS, True, 2, {"steps": HEALTH4_STEPS,
+                                            "matmuls": HEALTH4_MATMULS,
+                                            "n": HEALTH4_N},
+                     min_workers=MESH4_RANKS - 1, probe_timeout_s=120.0)
+    probes = run["probes"]
+    per_probe = [p.get("ping_k4_launches") for p in probes]
+    run["k4_launches_per_probe"] = per_probe
+    run["ping_bit_equal"] = all(p.get("ping_bit_equal") for p in probes)
+    if run["armed"]["node"] != "cuda:2" or \
+            run["nodes_after_drain"] != ["cuda:0", "cuda:1", "cuda:3"]:
+        raise AssertionError(f"health4: armed {run['armed']}, the group "
+                             f"after the drain on {run['nodes_after_drain']}")
+    quarantine = [e for e in run["events"] if e["event"] == "quarantine"]
+    if not (probes and per_probe == [MESH4_RANKS] * len(probes)
+            and run["ping_bit_equal"]
+            and "slower than reference" in quarantine[0]["reason"]):
+        raise AssertionError(f"health4: probes {probes}, quarantine "
+                             f"{quarantine}")
+    return run
+
+
 def main(argv) -> int:
     import torch
 
@@ -3781,6 +4189,8 @@ def main(argv) -> int:
             if "trainer4" in argv:
                 emit({"phase": "trainer4", "model": "llama2_7b",
                       **phase_trainer4(mesh4)})
+        if "health4" in argv:
+            emit({"phase": "health4", **phase_health4()})
         print(smi, flush=True)
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3789,6 +4199,7 @@ def main(argv) -> int:
     k1 = phase_kernels()
     k4 = phase_kernels_k4()
     emit({"phase": "small_reference", **phase_small_reference()})
+    emit({"phase": "vit_small_reference", **phase_vit_small_reference()})
     emit({"phase": "channel", **phase_channel()})
     ring = phase_ring()
     emit({"phase": "ring", **ring})
@@ -3947,6 +4358,22 @@ def main(argv) -> int:
     check_train("moe_train", moe_train, {"K1": 2 * MOE_TRAIN_LAYERS,
                                          "K2": MOE_TRAIN_LAYERS,
                                          "K3": MOE_TRAIN_LAYERS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit = phase_vit_train()
+    emit({"phase": "vit_train", **vit})
+    gc.collect()
+    torch.cuda.empty_cache()
+    health = phase_health()
+    emit({"phase": "health", **health})
+    health4 = None
+    if torch.cuda.device_count() >= MESH4_RANKS:
+        health4 = phase_health4()
+        emit({"phase": "health4", **health4})
+    else:
+        emit({"phase": "health4", "ran": False, "why": (
+            f"{torch.cuda.device_count()} card(s) present; the phase needs "
+            f"{MESH4_RANKS}")})
 
     main_case = k1["main_path"]
     row1, bwd = main_case["k1"], main_case["bwd"]
@@ -3962,6 +4389,7 @@ def main(argv) -> int:
                for path, run in train_paths.items()}
         out["trainer"] = trainer["launches"][name]
         out["trainer_resume"] = resume["launches"][name]
+        out["vit_train"] = vit["launches"][name]
         if trainer4 is not None:
             out["trainer4"] = int(MESH_STEPS * trainer4["k1_k2_k3_per_step"][
                 ("K1", "K2", "K3").index(name)])
@@ -3985,6 +4413,11 @@ def main(argv) -> int:
                 "plain_ms": gqa_bwd["plain_ms"],
                 "library_ms": gqa_bwd["library_ms"]}
 
+    # K4 in the health probe's ring ping: per probe, none with one card
+    health_pings = {"health_probe": health["probe_cuda0"].get(
+        "ping_k4_launches", 0)}
+    if health4 is not None:
+        health_pings["health4_per_probe"] = health4["k4_launches_per_probe"]
     source = "ray_tpu_torch/ops/cuda/csrc/"
     replaces = "ray_tpu/ops/pallas/flash_attention.py:"
     emit({"kernels": [
@@ -4031,7 +4464,8 @@ def main(argv) -> int:
          "source": source + "remote_copy.cu",
          "replaces": "ray_tpu/experimental/channel/transport.py:285",
          "design": k4["design"], "launches": ring["k4_launches"],
-         "launches_by_path": {"ring": ring["k4_launches"], **serving(3)},
+         "launches_by_path": {"ring": ring["k4_launches"], **serving(3),
+                              **health_pings},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],

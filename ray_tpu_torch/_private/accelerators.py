@@ -6,12 +6,18 @@ reference's ``num_gpus`` option maps to it).
 The reference counts TPU chips from ``/dev/accel*`` (or through jax);
 the port counts CUDA devices through ``torch.cuda.device_count()``,
 which honours ``CUDA_VISIBLE_DEVICES``, and probes nothing else.
+
+Every port process on one machine is one node, so the unit the health
+plane judges and a worker group places ranks on is smaller: the card a
+worker is bound to, ``"cuda:<index>"``, or for host workers the worker
+slot, ``"slot:<index>"``.  A worker finds its unit in
+``RAY_TPU_TORCH_NODE_ID``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -49,3 +55,28 @@ def default_resources(num_cpus: Optional[float] = None,
     resources["memory"] = float(_detect_memory_bytes())
     return resources
 
+
+
+ENV_NODE_ID = "RAY_TPU_TORCH_NODE_ID"  # the unit this process is bound to
+
+
+def node_id() -> str:
+    """The unit this process is bound to (``"cuda:<index>"`` or
+    ``"slot:<index>"``), or "" outside a worker or probe."""
+    return os.environ.get(ENV_NODE_ID, "")
+
+
+def node_units(use_gpu: bool, slots: int) -> List[str]:
+    """The units a worker group can be placed on: this node's cards, or
+    ``slots`` host worker slots."""
+    if use_gpu:
+        return [f"cuda:{i}" for i in range(detect_gpus())]
+    return [f"slot:{i}" for i in range(slots)]
+
+
+def unit_index(unit: str) -> int:
+    """The index of a unit: the card's ordinal or the slot's number."""
+    kind, _, index = unit.partition(":")
+    if kind not in ("cuda", "slot") or not index.isdigit():
+        raise ValueError(f"not a card or slot: {unit!r}")
+    return int(index)

@@ -1,5 +1,5 @@
-"""Weights carried across between the JAX Llama and MoE pytrees and the
-port.
+"""Weights carried across between the JAX Llama, MoE and ViT pytrees and
+the port.
 
 The JAX side is handed over as numpy arrays (``np.asarray`` of each leaf);
 the port keeps the same layout (``x @ W`` weights, layers stacked
@@ -20,6 +20,7 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.models.moe import MoEConfig
+from ray_tpu_torch.models.vit import ViTConfig
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
@@ -77,3 +78,23 @@ def params_to_jax(params: Dict[str, Any], cfg: LlamaConfig
     if "lm_head" in params:
         out["lm_head"] = _to_numpy(params["lm_head"])
     return out
+
+
+def vit_params_from_jax(tree: Dict[str, Any], cfg: ViTConfig,
+                        device=None) -> Dict[str, Any]:
+    """The port's params from a JAX ``vit_init`` pytree of numpy arrays
+    (layers stacked ``[L, ...]``, as JAX's ``vit_init`` always stacks)."""
+    dev = resolve_device(device)
+    if len(next(iter(tree["layers"].values()))) != cfg.num_layers:
+        raise ValueError("layer count of the tree does not match cfg")
+    return {k: ({n: _to_torch(a, dev) for n, a in v.items()}
+                if k == "layers" else _to_torch(v, dev))
+            for k, v in tree.items()}
+
+
+def vit_params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of ``vit_params_from_jax``: a pytree of numpy arrays in the
+    JAX ``vit_init`` layout."""
+    return {k: ({n: _to_numpy(t) for n, t in v.items()}
+                if k == "layers" else _to_numpy(v))
+            for k, v in params.items()}

@@ -10,10 +10,18 @@ resize works the same way (the new group re-forms the mesh).
 
 The controller hosts the run's key-value store (``_private/kv.py``),
 which every worker reaches through ``RAY_TPU_TORCH_KV``: collective
-rendezvous and status records, step breakdowns, and the run's own
-status under ``train/<name>``.  The reference's drain, gang fate-share
-and checkpoint replica-plane branches need its cluster core and are not
-ported.
+rendezvous and status records, step breakdowns, the run's own status
+under ``train/<name>``, and the node-health ladder of its units (cards,
+or host slots) that the health plane writes.
+
+The drain branch is the reference's (``_maybe_handle_drain``) with a
+quarantine on the ladder in place of a GCS drain notice: when a unit of
+the running group is QUARANTINED, the controller asks every rank for a
+checkpoint, waits for one (bounded by the quarantine's drain deadline),
+and restarts the group off the unit without charging
+``FailureConfig.max_failures``.  Groups are placed only on units that
+are not quarantined.  The reference's gang fate-share and checkpoint
+replica-plane branches need its cluster core and are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional
 
+from ray_tpu_torch._private import accelerators
+from ray_tpu_torch._private import health_plane
 from ray_tpu_torch._private import kv as kv_mod
 from ray_tpu_torch._private.net import address_in_use
 from ray_tpu_torch.train.checkpoint import Checkpoint
@@ -97,11 +107,42 @@ class TrainController:
         # a restart after a port race (EADDRINUSE) is not charged to the
         # failure budget, once per run
         self._port_retried = False
+        # the node-health ladder, polled at most twice a second
+        self._last_drain_check = 0.0
+        self._ladder: Dict[str, Dict[str, Any]] = {}
+        self._drains_handled: set = set()
+        # planned migrations (quarantine drains) taken, not charged
+        self.drain_restarts = 0
+
+    # -- units and the node-health ladder ----------------------------------
+    def _units(self) -> List[str]:
+        """The cards (or host slots) this run places ranks on: every card
+        of this node, or as many slots as the run may have workers."""
+        sc = self.scaling_config
+        slots = max(sc.num_workers,
+                    getattr(self.scaling_policy, "max_workers", 0))
+        return accelerators.node_units(sc.use_gpu, slots)
+
+    def _poll_ladder(self, force: bool = False) -> Dict[str, Dict[str, Any]]:
+        now = time.time()
+        if force or now - self._last_drain_check >= 0.5:
+            self._last_drain_check = now
+            try:
+                self._ladder = health_plane.node_health(self.kv)
+            except Exception:  # noqa: BLE001 — a store hiccup
+                pass
+        return self._ladder
+
+    def _quarantined(self, force: bool = False) -> Dict[str, Dict[str, Any]]:
+        return {n: rec for n, rec in self._poll_ladder(force).items()
+                if rec.get("health") == "QUARANTINED"}
 
     # -- group lifecycle ---------------------------------------------------
     def _start_group(self) -> WorkerGroup:
+        bad = self._quarantined(force=True)
+        units = [u for u in self._units() if u not in bad]
         decision = self.scaling_policy.make_decision_for_non_running_worker_group(
-            self.scaling_config)
+            self.scaling_config, units_left=len(units))
         sc = self.scaling_config
         if isinstance(decision, ResizeDecision) and \
                 decision.num_workers != sc.num_workers:
@@ -115,7 +156,7 @@ class TrainController:
         # new one's.
         self._generation += 1
         self._rank_row_counts = {}
-        group = WorkerGroup(sc, f"{self.name}/g{self._generation}",
+        group = WorkerGroup(sc, f"{self.name}/g{self._generation}", units,
                             env={kv_mod.ENV_KV: self.kv.addr})
         group.start()
         try:
@@ -179,6 +220,7 @@ class TrainController:
                 k: v for k, v in latest.items()
                 if isinstance(v, (int, float, str))},
             "restarts": self._ctx.errors_seen,
+            "drain_restarts": self.drain_restarts,
             "started_at": getattr(self, "_started_at", 0.0),
         }
         blob = json.dumps(snap, default=str).encode()
@@ -197,10 +239,53 @@ class TrainController:
         raw = self.kv.get(f"train/{self.name}") if self.kv else None
         return json.loads(raw) if raw else None
 
+    # -- drain on quarantine ------------------------------------------------
+    def _maybe_handle_drain(self, group: WorkerGroup) -> bool:
+        """React to a quarantine of a unit hosting this group: ask every
+        rank for an immediate checkpoint, wait (bounded by the
+        quarantine's drain deadline and ``train_drain_checkpoint_wait_s``)
+        for one to be reported and registered, and tell the caller to
+        restart the group, which is then placed off the unit.  The
+        after-the-corpse half (worker death -> FailurePolicy -> restore)
+        stays the fallback."""
+        bad = self._quarantined()
+        overlap = {nid: rec for nid, rec in bad.items()
+                   if nid in set(group.worker_node_ids())
+                   and nid not in self._drains_handled}
+        if not overlap:
+            return False
+        self._drains_handled.update(overlap)
+        wait_s = health_plane.DEFAULTS["train_drain_checkpoint_wait_s"]
+        deadline = min(rec.get("drain_deadline") or time.time() + wait_s
+                       for rec in overlap.values())
+        logger.warning(
+            "train %s: unit(s) %s hosting workers quarantined (%.1fs to "
+            "the drain deadline); requesting an immediate checkpoint and "
+            "restarting off them", self.name, sorted(overlap),
+            max(0.0, deadline - time.time()))
+        pre_ckpts = len(self._ckpt_registered)
+        group.request_checkpoint()
+        # a margin before the deadline for the group's teardown
+        wait_until = min(deadline - 1.0, time.time() + wait_s)
+        while time.time() < wait_until:
+            statuses = group.poll()
+            self._collect_results(statuses)
+            # finished beats checkpointed: a run completing during the
+            # wait must not be torn down and re-run from its checkpoint
+            if all(s.finished for s in statuses):
+                return False
+            if len(self._ckpt_registered) > pre_ckpts:
+                break  # the pre-drain checkpoint is registered
+            if any(s.error for s in statuses):
+                break  # restart from what there is
+            time.sleep(self.poll_interval_s)
+        return True
+
     # -- control loop ------------------------------------------------------
     def run(self) -> Result:
         self._started_at = time.time()
         self.kv = kv_mod.host()
+        health_plane.publish_units(self.kv, self._units())
         group = self._start_group()
         self._last_world_size = len(group.workers)
         error: Optional[BaseException] = None
@@ -210,6 +295,16 @@ class TrainController:
                 statuses = group.poll()
                 self._collect_results(statuses)
                 self._publish_status(group, "RUNNING")
+
+                if not all(s.finished for s in statuses) and \
+                        self._maybe_handle_drain(group):
+                    # a planned migration, not a failure: no charge to
+                    # the failure budget; the restart re-runs the
+                    # ScalingPolicy over the units left
+                    self.drain_restarts += 1
+                    group.shutdown()
+                    group = self._restart_group()
+                    continue
 
                 errs = [s for s in statuses if s.error]
                 if errs and not self._port_retried and \

@@ -1,6 +1,9 @@
 """Failure and scaling policies for the train control loop: a copy of
 ``ray_tpu/train/policies.py``, whose elastic policy counts this node's
-resources (``_private/accelerators.py``) in place of the cluster's.
+resources (``_private/accelerators.py``) in place of the cluster's, and
+the cards or slots the controller can still place ranks on (those not
+quarantined by the health plane) in place of the cluster's placeable
+nodes.
 
 Parity: Train-v2 ``FailurePolicy``
 (``python/ray/train/v2/_internal/execution/failure_handling/failure_policy.py:14``)
@@ -57,9 +60,12 @@ class NoopDecision:
 
 
 class ScalingPolicy:
-    """Consulted by the controller when (re)creating the worker group."""
+    """Consulted by the controller when (re)creating the worker group;
+    ``units_left`` is the number of cards (or host slots) not
+    quarantined, None when unknown."""
 
-    def make_decision_for_non_running_worker_group(self, scaling_config):
+    def make_decision_for_non_running_worker_group(
+            self, scaling_config, units_left: Optional[int] = None):
         raise NotImplementedError
 
     def make_decision_for_running_worker_group(self, scaling_config):
@@ -67,7 +73,8 @@ class ScalingPolicy:
 
 
 class FixedScalingPolicy(ScalingPolicy):
-    def make_decision_for_non_running_worker_group(self, scaling_config):
+    def make_decision_for_non_running_worker_group(
+            self, scaling_config, units_left: Optional[int] = None):
         return ResizeDecision(num_workers=scaling_config.num_workers)
 
 
@@ -95,7 +102,9 @@ class ElasticScalingPolicy(ScalingPolicy):
         self.resources_per_worker = resources_per_worker
         self.settle_s = settle_s
 
-    def _fit_now(self, res) -> int:
+    def _fit_now(self, res, units_left: Optional[int] = None) -> int:
+        """Workers that fit now: by this node's resources, and one per
+        card or slot left (``units_left``, None = not counted)."""
         from ray_tpu_torch._private import accelerators
 
         avail = accelerators.default_resources()
@@ -105,14 +114,17 @@ class ElasticScalingPolicy(ScalingPolicy):
                 continue
             have = avail.get(k, 0.0)
             fit = min(fit, int(have // per))
+        if units_left is not None:
+            fit = min(fit, units_left)
         return fit
 
-    def make_decision_for_non_running_worker_group(self, scaling_config):
+    def make_decision_for_non_running_worker_group(
+            self, scaling_config, units_left: Optional[int] = None):
         import time
 
         res = self.resources_per_worker or scaling_config.worker_resources()
         deadline = time.monotonic() + self.settle_s
-        fit = prev = self._fit_now(res)
+        fit = prev = self._fit_now(res, units_left)
         while time.monotonic() < deadline:
             # the LAST sample wins: it reflects both directions of flux
             # (a dead node dropping out of the view corrects an
@@ -122,6 +134,6 @@ class ElasticScalingPolicy(ScalingPolicy):
             if fit >= self.max_workers and prev >= self.max_workers:
                 break
             time.sleep(0.25)
-            prev, fit = fit, self._fit_now(res)
+            prev, fit = fit, self._fit_now(res, units_left)
         n = max(self.min_workers, min(self.max_workers, fit))
         return ResizeDecision(num_workers=n)

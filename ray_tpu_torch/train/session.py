@@ -7,8 +7,10 @@ worker process; ``report()`` enqueues (metrics, checkpoint) rows the
 controller polls over the worker's pipe (``train/worker_group.py``).
 
 The reference's tiered checkpoint plane (``checkpointer()``,
-``restore_checkpoint()``) and its drain notices are not ported: the
-first two raise, and checkpoints are the sync mode's directories.
+``restore_checkpoint()``) is not ported: both raise, and checkpoints are
+the sync mode's directories.  A drain notice (the controller's, when the
+health plane quarantines a card of the group) asks the loop for a
+checkpoint at its next step boundary: ``drain_requested()``.
 """
 
 from __future__ import annotations
@@ -163,14 +165,23 @@ class StepLedger:
         }
 
     def _publish_kv(self) -> None:
+        from ray_tpu_torch._private import accelerators
         from ray_tpu_torch._private import kv as kv_mod
+        from ray_tpu_torch.util.health import edge_latency_snapshot
 
         if kv_mod.address() is None:
             return
         rec = {"ts": time.time(), "group": self.group_name,
                "rank": self.rank, **self.breakdown(),
                "last": self.last_breakdown(),
-               "recent": self.recent_breakdown()}
+               # health-plane inputs: the recent scoring window, the card
+               # or slot this rank runs on, and the per-edge channel
+               # latencies its process observed
+               "recent": self.recent_breakdown(),
+               "node_id": accelerators.node_id()}
+        edges = edge_latency_snapshot()
+        if edges:
+            rec["edges"] = edges
         key = (f"train/step_breakdown/{self.group_name or 'default'}/"
                f"{self.rank}")
         kv_mod.client().put(key, json.dumps(rec).encode())
@@ -208,6 +219,10 @@ class _TrainSession:
         self.device = device  # "cuda" (this rank's card) or "cpu"
         self._mesh = None  # resolved DeviceMesh, built lazily once
         self._ledger: Optional[StepLedger] = None
+        # set by the controller when a card (or slot) of the group is
+        # quarantined: the loop should checkpoint at its next step
+        # boundary; cleared when a checkpoint is reported
+        self.checkpoint_requested = threading.Event()
 
 
 def _start_session(**kw) -> _TrainSession:
@@ -233,6 +248,8 @@ def report(
     """Report metrics (and optionally a directory :class:`Checkpoint`) to
     the controller."""
     s = _get_session()
+    if checkpoint is not None:
+        s.checkpoint_requested.clear()
     s.results.put({"metrics": dict(metrics), "checkpoint": checkpoint})
 
 
@@ -342,6 +359,13 @@ class TrainContext:
     def get_local_rank(self) -> int:
         return _get_session().local_rank
 
+    def get_node_id(self) -> str:
+        """The unit this worker is bound to: its card (``"cuda:<i>"``)
+        or, on the host, its slot (``"slot:<i>"``)."""
+        from ray_tpu_torch._private.accelerators import node_id
+
+        return node_id()
+
     def get_trial_name(self) -> str:
         return _get_session().group_name
 
@@ -376,6 +400,14 @@ class TrainContext:
         if s._ledger is None:
             s._ledger = StepLedger(group_name=s.group_name, rank=s.rank)
         return s._ledger
+
+    def drain_requested(self) -> bool:
+        """True when the card (or slot) of a worker of this group was
+        quarantined and the controller asked for an immediate
+        checkpoint: report one at the next step boundary; steps since
+        the last reported checkpoint will be re-run by the replacement
+        group.  Loops that checkpoint every step can ignore this."""
+        return _get_session().checkpoint_requested.is_set()
 
     def checkpointer(self, writers: Optional[int] = None):
         raise NotImplementedError(

@@ -10,6 +10,12 @@ over a pipe, as the reference's actor methods; the user loop runs in a
 thread of the worker, and the controller polls for its status.  Pipe
 messages are stdlib ``pickle``, so a loop travels by reference: it must
 be a module-level function the worker can import.
+
+Each rank is placed on a unit of its own: a card (``"cuda:<i>"``) or,
+for host workers, a slot (``"slot:<i>"``); its ``LOCAL_RANK`` is the
+unit's index.  The controller hands the group the units that are not
+quarantined; a worker finds its unit in ``RAY_TPU_TORCH_NODE_ID`` and
+arms the faults armed on it (``_private/node_faults.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import dataclasses
 import os
 import pickle
 import socket
+import sys
 import threading
 import traceback
 from typing import Any, Callable, Dict, List, Optional
@@ -46,6 +53,7 @@ class TrainWorker:
         self._session = None
 
     def get_metadata(self) -> Dict[str, Any]:
+        from ray_tpu_torch._private.accelerators import node_id
         from ray_tpu_torch._private.net import LOOPBACK
 
         return {
@@ -53,6 +61,7 @@ class TrainWorker:
             "hostname": socket.gethostname(),
             "ip": LOOPBACK,
             "local_rank": int(os.environ.get("LOCAL_RANK", "0")),
+            "node_id": node_id(),
         }
 
     def find_free_port(self) -> int:
@@ -120,6 +129,15 @@ class TrainWorker:
                                         name="train-loop")
         self._thread.start()
 
+    def request_checkpoint(self) -> bool:
+        """Drain-notice leg: ask the loop to checkpoint at its next step
+        boundary (``get_context().drain_requested()`` flips true)."""
+        sess = self._session
+        if sess is None:
+            return False
+        sess.checkpoint_requested.set()
+        return True
+
     def poll(self) -> Dict[str, Any]:
         sess = self._session
         if sess is None:
@@ -171,6 +189,14 @@ def _worker_main(conn, env: Dict[str, str]) -> None:
     commands until ``shutdown`` or until the controller's end of the
     pipe closes."""
     os.environ.update(env)
+    from ray_tpu_torch._private import accelerators, kv as kv_mod
+
+    halt_watcher = None
+    if kv_mod.address() and accelerators.node_id():
+        from ray_tpu_torch._private.node_faults import start_watcher
+
+        halt_watcher = start_watcher(kv_mod.address(),
+                                     accelerators.node_id())
     worker = TrainWorker()
     while True:
         try:
@@ -190,7 +216,16 @@ def _worker_main(conn, env: Dict[str, str]) -> None:
     conn.close()
     sess = worker._session
     if sess is None or sess.finished.is_set():
+        if halt_watcher is not None:
+            halt_watcher()
         _release_groups()
+        return
+    # the loop still runs (a drain or a restart tore the group down): its
+    # thread may be inside a collective, which the interpreter's
+    # finalisation would abort under it; the process is discarded whole
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def _release_groups() -> None:
@@ -221,24 +256,29 @@ class WorkerDied(RuntimeError):
 class WorkerGroup:
     """Lifecycle of the N worker processes of one generation."""
 
-    def __init__(self, scaling_config, group_name: str,
+    def __init__(self, scaling_config, group_name: str, units: List[str],
                  env: Optional[Dict[str, str]] = None):
         self.scaling_config = scaling_config
         self.group_name = group_name
         self.env = dict(env or {})
+        self.units = list(units)  # the cards or slots to place ranks on
         self.workers: List[Any] = []  # (process, connection) per rank
         self.worker_metadata: List[Dict[str, Any]] = []
         self._started = False
 
     def start(self) -> None:
         """Check that the group fits this node (as a placement group
-        that cannot place fails), then spawn one process per rank with
-        ``LOCAL_RANK`` set, and wait until every one answers."""
+        that cannot place fails), then spawn one process per rank, rank
+        r on the r-th unit with ``RAY_TPU_TORCH_NODE_ID`` and
+        ``LOCAL_RANK`` (the unit's index: its card, or its slot) set,
+        and wait until every one answers."""
         import multiprocessing
 
         import torch
 
-        from ray_tpu_torch._private.accelerators import default_resources
+        from ray_tpu_torch._private.accelerators import (ENV_NODE_ID,
+                                                         default_resources,
+                                                         unit_index)
 
         sc = self.scaling_config
         if sc.use_gpu and not torch.cuda.is_available():
@@ -255,11 +295,19 @@ class WorkerGroup:
                     f"{sc.num_workers} workers x {res} need "
                     f"{key}={per * sc.num_workers:g}, this node has "
                     f"{have.get(key, 0):g}")
+        units = self.units
+        if len(units) < sc.num_workers:
+            raise RuntimeError(
+                f"worker group {self.group_name} cannot be placed: "
+                f"{sc.num_workers} workers, {len(units)} "
+                f"{'cards' if sc.use_gpu else 'slots'} free ({units})")
         ctx = multiprocessing.get_context("spawn")
         try:
             for rank in range(sc.num_workers):
                 parent, child = ctx.Pipe()
-                env = {**self.env, "LOCAL_RANK": str(rank)}
+                unit = units[rank]
+                env = {**self.env, ENV_NODE_ID: unit,
+                       "LOCAL_RANK": str(unit_index(unit))}
                 proc = ctx.Process(target=_worker_main, args=(child, env),
                                    name=f"train-worker-{rank}", daemon=True)
                 proc.start()
@@ -292,6 +340,18 @@ class WorkerGroup:
         if status != "ok":
             raise RuntimeError(f"worker {rank} {cmd!r} failed:\n{value}")
         return value
+
+    def worker_node_ids(self) -> List[str]:
+        """The unit each rank is bound to, by rank."""
+        return [m["node_id"] for m in self.worker_metadata]
+
+    def request_checkpoint(self) -> None:
+        """Best-effort fan-out of the drain notice to every rank."""
+        for rank in range(len(self.workers)):
+            try:
+                self.call(rank, "request_checkpoint", timeout=5.0)
+            except (WorkerDied, RuntimeError):
+                pass
 
     def run_train_fn(
         self,

@@ -40,6 +40,7 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from ray_tpu_torch._private import accelerators
 from ray_tpu_torch._private import kv as kv_mod
 from ray_tpu_torch._private.durations import note_duration
 from ray_tpu_torch.exceptions import CollectiveAbortError
@@ -190,6 +191,47 @@ def drop_group_keys(group_name: str) -> None:
                 kv.delete(key)
     except Exception:  # noqa: BLE001 — the store may already be down
         pass
+
+
+def aggregate_status_records(records) -> List[Dict[str, Any]]:
+    """Fold per-member status records (the watchdog KV heartbeats) into
+    per-group summaries (the reference's one aggregation behind its
+    state API, CLI and dashboard; here the health plane's reader of
+    member records)."""
+    # ghosts first: records of a dead incarnation that escaped the
+    # leader's sweep must not merge into (or ABORT-promote) the current
+    # epoch's summary
+    by_name: Dict[str, List[Dict[str, Any]]] = {}
+    for rec in records:
+        if rec.get("group_name"):
+            by_name.setdefault(rec["group_name"], []).append(rec)
+    records = []
+    for recs in by_name.values():
+        top = max(r.get("epoch", 0) for r in recs)
+        records.extend(r for r in recs if r.get("epoch", 0) == top)
+    groups: Dict[str, Dict[str, Any]] = {}
+    for rec in records:
+        name = rec.get("group_name")
+        if not name:
+            continue
+        g = groups.setdefault(name, {
+            "group_name": name,
+            "world_size": rec.get("world_size"),
+            "backend": rec.get("backend", ""),
+            "epoch": rec.get("epoch", 0),
+            "state": "READY",
+            "members": [],
+        })
+        g["members"].append(rec)
+        g["epoch"] = max(g["epoch"], rec.get("epoch", 0))
+        if rec.get("state") == "ABORTED":
+            g["state"] = "ABORTED"
+            if rec.get("abort_reason"):
+                g["abort_reason"] = rec["abort_reason"]
+    for g in groups.values():
+        g["members"].sort(key=lambda m: m.get("rank") or 0)
+        g["joined"] = len(g["members"])
+    return sorted(groups.values(), key=lambda g: g["group_name"])
 
 
 def _supervised(fn):
@@ -405,6 +447,9 @@ class SupervisedGroup:
             "epoch": getattr(self._inner, "epoch", 0),
             "state": self._state.value,
             "pid": os.getpid(),
+            # the card or slot this rank is bound to: the health plane
+            # maps ranks to the units it judges through it
+            "node_id": accelerators.node_id(),
             "last_done_seq": self._last_done_seq,
             "op_count": self._seq,
             "inflight": ({"op": inflight["op"], "seq": inflight["seq"],

@@ -43,7 +43,13 @@ site                        guards
                             (``collective_group/torch_group.py``)
 ``train.checkpoint.commit`` between checkpoint staging and rename-commit
                             (``train/checkpoint_manager.py``)
+``health.probe``            each iteration of the health probe's timed
+                            matmul loop, and the monitor's dispatch of a
+                            probe (``_private/health_plane.py``)
 ==========================  =================================================
+
+A spec armed on a card or slot (``_private/node_faults.py``) reaches
+every process bound to it: its workers and the probes run there.
 
 Three kinds are special:
 

@@ -75,7 +75,10 @@ def test_import_leaves_jax_and_reference_unloaded():
         "ray_tpu_torch.train.policies, ray_tpu_torch.train.checkpoint, "
         "ray_tpu_torch.train.checkpoint_manager, "
         "ray_tpu_torch.train.worker_group, ray_tpu_torch.train.session, "
-        "ray_tpu_torch.train.controller, ray_tpu_torch.train.trainer\n"
+        "ray_tpu_torch.train.controller, ray_tpu_torch.train.trainer, "
+        "ray_tpu_torch.models.vit, ray_tpu_torch.util.health, "
+        "ray_tpu_torch._private.health_plane, "
+        "ray_tpu_torch._private.node_faults\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"

@@ -29,13 +29,15 @@ from torch.distributed.tensor import Shard
 from ray_tpu.models import llama as jllama
 from ray_tpu.models import moe as jmoe
 from ray_tpu.models import training as jtraining
+from ray_tpu.models import vit as jvit
 from ray_tpu.ops import attention as jattn
 from ray_tpu.parallel import mesh as jmesh
 from ray_tpu.parallel import pipeline as jpipeline
 from ray_tpu.parallel import sharding as jsharding
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models import moe as tmoe
-from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models import vit as tvit
+from ray_tpu_torch.models.convert import params_from_jax, vit_params_from_jax
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import sharding as tsharding
 
@@ -226,6 +228,8 @@ def _inputs():
         jllama.llama_init, static_argnums=1)(jax.random.PRNGKey(0), jcfg))
     mtree = jax.tree.map(np.asarray, jax.jit(
         jmoe.moe_init, static_argnums=1)(jax.random.PRNGKey(1), mcfg))
+    vtree = jax.tree.map(np.asarray, jvit.vit_init(
+        jax.random.PRNGKey(2), jvit.ViTConfig.tiny(dtype=jnp.float32)))
     rng = np.random.default_rng(0)
     arrays = {
         "tokens": rng.integers(0, jcfg.vocab_size, (8, 17)).astype(np.int32),
@@ -233,15 +237,20 @@ def _inputs():
         "q": rng.standard_normal((2, 16, 4, 16)).astype(np.float32),
         "k": rng.standard_normal((2, 16, 2, 16)).astype(np.float32),
         "v": rng.standard_normal((2, 16, 2, 16)).astype(np.float32),
-        "dout": rng.standard_normal((2, 16, 4, 16)).astype(np.float32)}
+        "dout": rng.standard_normal((2, 16, 4, 16)).astype(np.float32),
+        # drawn after the others, which keep their values
+        "images": rng.standard_normal((8, 32, 32, 3)).astype(np.float32),
+        "labels": rng.integers(0, 10, (8,)).astype(np.int32)}
     port = {"llama": params_from_jax(tree, tllama.LlamaConfig.tiny(),
                                      device="cpu"),
             "moe": params_from_jax(mtree, tmoe.MoEConfig.tiny_moe(
                 dtype=torch.float32), device="cpu"),
+            "vit": vit_params_from_jax(vtree, tvit.ViTConfig.tiny(
+                dtype=torch.float32), device="cpu"),
             **{k: torch.from_numpy(v.copy()) for k, v in arrays.items()}}
-    port["tokens"] = port["tokens"].long()
-    port["mask"] = port["mask"].long()
-    return port, {"llama": tree, "moe": mtree, **arrays}
+    for k in ("tokens", "mask", "labels"):
+        port[k] = port[k].long()
+    return port, {"llama": tree, "moe": mtree, "vit": vtree, **arrays}
 
 
 def _mesh(**kw):
@@ -321,6 +330,16 @@ def _moe_refs(a, mesh):
             "pp_refusal": refusal}
 
 
+def _vit_refs(a, mesh):
+    cfg = jvit.ViTConfig.tiny(dtype=jnp.float32)
+    batch = {"images": a["images"], "labels": a["labels"]}
+    logits = jax.jit(lambda p, x: jvit.vit_apply(p, x, cfg, mesh=mesh))(
+        a["vit"], a["images"])
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jvit.vit_loss(p, b, cfg, mesh=mesh)))(a["vit"], batch)
+    return {"logits": logits, "loss": loss, "grads": grads}
+
+
 RING = [("causal", "ring", True, None), ("non_causal", "ring", False, None),
         ("window", "ring", True, 5)]
 PER_SHARD = [("flash", "flash", True, None), ("ref", "ref", True, None),
@@ -350,6 +369,8 @@ def _jax_refs(a):
         "train_fsdp_accum": _trainer_refs(a, _mesh(dp=1, fsdp=-1),
                                           accum_steps=2, masked=True),
         "moe_fsdp_tp": _moe_refs(a, _mesh(dp=1, fsdp=2, tp=2)),
+        "vit_dp2_tp2": _vit_refs(a, _mesh(dp=2, tp=2)),
+        "vit_fsdp4": _vit_refs(a, _mesh(dp=1, fsdp=4)),
     }
 
 
@@ -512,3 +533,16 @@ def test_moe_trainer_refuses_pp_as_jax(runs):
     got, want = _case(runs, "moe_fsdp_tp")
     assert got["pp_refusal"] is not None
     assert got["pp_refusal"] == want["pp_refusal"]
+
+
+@pytest.mark.parametrize("case", ["vit_dp2_tp2", "vit_fsdp4"])
+def test_vit_on_mesh_matches_jax(runs, case):
+    """``vit_apply`` logits and ``vit_loss`` with its grads (ViT tiny,
+    fp32, 'ref' attention per shard) on dp=2 x tp=2 (heads, MLP and the
+    10 classes over tp) and on fsdp=4, against JAX on the same mesh."""
+    got, want = _case(runs, case)
+    assert got["params_are_dtensors"]
+    _close(got["logits"], want["logits"], what="logits")
+    _close(got["loss"], want["loss"], 0, LOSS_RTOL, "loss")
+    _close_tree(got["grads"], jax.tree.map(np.asarray, want["grads"]),
+                what="grads")

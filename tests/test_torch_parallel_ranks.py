@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from ray_tpu_torch.models import llama as tllama  # noqa: E402
 from ray_tpu_torch.models import moe as tmoe  # noqa: E402
 from ray_tpu_torch.models import training as ttraining  # noqa: E402
+from ray_tpu_torch.models import vit as tvit  # noqa: E402
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
 from ray_tpu_torch.ops.cuda import flash_attention as tflash  # noqa: E402
 from ray_tpu_torch.parallel import (ENV_LEGACY_SHARDING,  # noqa: E402
@@ -208,6 +209,25 @@ def moe_case(inputs, config):
             "grads": _grads(params), "pp_refusal": refused}
 
 
+def vit_case(inputs, config):
+    """``vit_apply`` logits and ``vit_loss`` with its grads on
+    ``config``'s mesh from the converted weights (``ViTConfig.tiny`` in
+    fp32; its 10 classes split over tp <= 2)."""
+    cfg = tvit.ViTConfig.tiny(dtype=torch.float32)
+    mesh = mesh_for(config)
+    params = _params(inputs, "vit", mesh, tvit.vit_param_specs(cfg))
+    with torch.no_grad():
+        logits = tvit.vit_apply(params, inputs["images"], cfg, mesh=mesh)
+    loss = tvit.vit_loss(params, {"images": inputs["images"],
+                                  "labels": inputs["labels"]}, cfg,
+                         mesh=mesh)
+    loss.backward()
+    return {"logits": full(logits), "loss": full(loss),
+            "grads": _grads(params), "params_are_dtensors": all(
+                hasattr(t, "placements")
+                for t in ttraining.tree_leaves(params))}
+
+
 CASES = {
     "ring_sp4": lambda i: attention_case(i, MeshConfig(dp=1, sp=4), RING),
     "ring_sp2_tp2": lambda i: attention_case(
@@ -234,6 +254,8 @@ CASES = {
         i, MESH_PRESETS["fsdp"], accum_steps=2, masked=True),
     "flash_counts": lambda i: flash_count_case(i, MESH_PRESETS["fsdp_tp"]),
     "moe_fsdp_tp": lambda i: moe_case(i, MeshConfig(dp=1, fsdp=2, tp=2)),
+    "vit_dp2_tp2": lambda i: vit_case(i, MeshConfig(dp=2, tp=2)),
+    "vit_fsdp4": lambda i: vit_case(i, MeshConfig(dp=1, fsdp=4)),
 }
 
 

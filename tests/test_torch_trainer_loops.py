@@ -233,3 +233,121 @@ def collective_rank(rank, world, kv_addr, inputs_path, out_dir):
         res = {"error": traceback.format_exc()}
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
+
+
+# ---------------------------------------------------------------------------
+# the health plane (tests/test_torch_health.py)
+# ---------------------------------------------------------------------------
+
+
+def _marker(side_dir, name, info):
+    """The marker ``name`` in ``side_dir``, written whole."""
+    import json
+
+    me = os.path.join(side_dir, name)
+    with open(me + ".tmp", "w") as f:
+        json.dump(info, f)
+    os.replace(me + ".tmp", me)
+
+
+def _checkpoint(config, name, step):
+    """A checkpoint of ``step`` (a state file) named ``name`` beside
+    ``config["side_dir"]``."""
+    import json
+
+    d = os.path.join(os.path.dirname(config["side_dir"]), "ckpt", name)
+    os.makedirs(d)
+    with open(os.path.join(d, "state.json"), "w") as f:
+        json.dump({"step": step}, f)
+    return train.Checkpoint(d)
+
+
+def _resume_step(ctx):
+    import json
+
+    ck = ctx.get_checkpoint()
+    if ck is None:
+        return 0
+    with open(os.path.join(ck.path, "state.json")) as f:
+        return json.load(f)["step"] + 1
+
+
+def drain_loop(config):
+    """The deterministic drain: each step writes a marker (step, world,
+    rank, unit).  At ``config["world"]`` workers the loop holds at step
+    ``hold_at`` until the drain notice (the test quarantines a slot once
+    it sees that step's markers), writes a marker of the sites armed in
+    this process, reports that step with a checkpoint, and then waits to
+    be torn down.  A resumed group starts after its checkpoint's
+    step."""
+    from ray_tpu_torch.util import fault_injection as fi
+
+    torch.set_num_threads(1)
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    first = world == config["world"]
+    start = _resume_step(ctx)
+    for step in range(start, config["steps"]):
+        _marker(config["side_dir"], f"s{step}-w{world}-r{rank}",
+                {"node": ctx.get_node_id()})
+        if first and step == config["hold_at"]:
+            t0 = time.monotonic()
+            while not ctx.drain_requested():
+                if time.monotonic() - t0 > 120:
+                    raise RuntimeError("no drain notice in 120 s")
+                time.sleep(0.01)
+            _marker(config["side_dir"], f"drained-r{rank}",
+                    {"node": ctx.get_node_id(), "armed": sorted(fi._armed)})
+        ckpt = None
+        if ctx.drain_requested():
+            ckpt = _checkpoint(config, f"r{rank}-s{step}", step)
+        train.report({"step": step, "world": world, "start": start,
+                      "node": ctx.get_node_id(),
+                      "drain_checkpoint": ckpt is not None},
+                     checkpoint=ckpt)
+        if first and step >= config["hold_at"]:
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 120:  # torn down before this
+                time.sleep(0.05)
+            raise RuntimeError("the drained group was not torn down")
+
+
+def straggler_loop(config):
+    """The reference's end-to-end loop (``tests/test_health.py:665``):
+    each step runs ``step_s`` of compute behind the ``train.work`` fault
+    site, then a file barrier over the world standing in for the
+    collective, its wait booked to ``collective_wait``; the step ledger
+    publishes every step, and every step reports a checkpoint."""
+    from ray_tpu_torch.util.fault_injection import fault_point
+
+    torch.set_num_threads(1)
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    ledger = ctx.step_ledger()
+    ledger._PUBLISH_EVERY_S = 0.0  # publish at every step boundary
+    for step in range(_resume_step(ctx), config["steps"]):
+        with ledger.step():
+            with ledger.bucket("compute"):
+                fault_point("train.work")  # the degradable compute path
+                time.sleep(config["step_s"])
+            _marker(config["side_dir"], f"s{step}-w{world}-r{rank}",
+                    {"step": step, "rank": rank, "world": world,
+                     "node": ctx.get_node_id()})
+            t0 = time.monotonic()
+            want = {f"s{step}-w{world}-r{r}" for r in range(world)}
+            while time.monotonic() - t0 < 60:
+                if want <= set(os.listdir(config["side_dir"])):
+                    break
+                time.sleep(0.01)
+            ledger.note("collective_wait", time.monotonic() - t0)
+        train.report({"step": step, "world": world}, checkpoint=_checkpoint(
+            config, f"w{world}-r{rank}-s{step}", step))
+
+
+def armed_factor(site):
+    """In a process bound to a unit: the ``slow`` factor armed at
+    ``site`` there (None when nothing is)."""
+    from ray_tpu_torch.util import fault_injection as fi
+
+    arm = fi._armed.get(site)
+    return None if arm is None else arm.factor
