@@ -9,7 +9,10 @@ Run from the repository root with no arguments::
 run alone, after the ``env`` phase: ``python3 chip_smoke.py mesh4`` runs
 ``mesh4``, ``serve_mesh4`` the ``serve`` phase it compares with and
 ``serve_mesh4``, ``trainer4`` ``mesh4`` and ``trainer4``; the names
-combine, as in ``python3 chip_smoke.py serve_mesh4 trainer4``.)
+combine, as in ``python3 chip_smoke.py serve_mesh4 trainer4``.  On one
+card the data-plane phases run alone the same way: ``data_trainer``
+runs ``train``, ``trainer`` and ``data_trainer``, ``data_vit`` runs
+``vit_train`` and ``data_vit``.)
 
 Phases, each printing one JSON line:
 
@@ -171,6 +174,19 @@ Phases, each printing one JSON line:
    runs allreduce, allgather, reducescatter and broadcast on 64 MiB of
    integer-valued fp32 per rank, each equal to the host's result bit for
    bit, with its ms per op.
+10g. ``data_trainer``: the ``trainer`` phase's step fed by the data
+   plane: ``TorchTrainer(..., datasets={"train": ds})`` on one worker
+   with the card, ``ds`` ``from_numpy`` of 9 token rows [9, 2049] whose
+   first is ``trainer``'s batch; the worker reads its
+   ``streaming_split`` shard through ``iter_torch_batches(batch_size=1,
+   prefetch_batches=2)`` (page-locked staging, a copy stream) for two
+   warm-up, three timed and one profiled step, then the rest.  The
+   first loss must be bit-equal to ``trainer``'s, K1, K2 and K3 must
+   launch once per layer per timed step, every landed batch must have
+   its host row's int64 sum and shape, and no segment of the split may
+   outlive ``fit()``; it prints the H2D copy's device ms per batch (from
+   the profiled step's trace), each step's wait for its batch, the step
+   wall beside ``trainer``'s and the idle share.
 11. ``train_save_attn_mlp`` and ``train_save_dots``: the same train step
    under the other two remat policies, from the same seed and tokens (one
    warm-up and two timed steps each): K1 launches once per layer per
@@ -189,6 +205,19 @@ Phases, each printing one JSON line:
    replayed whole as the reference's remat), b=1, s=2048, two warm-up
    and three timed steps; K1 must launch twice per layer per step, K2
    and K3 once.
+14. ``vit_train``: ViT-B/16 at its published width, b=256, random
+   images on the card; then ``data_vit``: the same step fed by
+   ``iter_torch_batches(dtypes={"images": torch.float32},
+   prefetch_batches=2)`` over eight batches of uint8 images [256, 224,
+   224, 3] and int64 labels from seed 4 (38.5 MB per batch on the host,
+   154 MB landed as fp32), two warm-up steps (the second profiled) and
+   six chained steps.  Every
+   landed batch must equal the host's cast on the card bit for bit and
+   every loss be finite; it prints images/s and step ms beside
+   ``vit_train``'s, each step's wait for its batch, the host cast and
+   the H2D copies' device ms per batch (from the profiled step's
+   trace), the page-locked bytes and peak memory.  Then
+   ``health`` and, with four cards, ``health4``.
 
 Then the ``kernels`` line (every ported kernel with its launches on its
 main path: K1, K2 and K3 in ``train``, K4 in ``ring``; the launches of
@@ -271,10 +300,20 @@ SERVE_MESH4_TIMEOUT_S = 600
 # serve_mesh4 mesh4 trainer4 health4``); trainer4 runs mesh4 first, whose
 # first loss it is held to
 FOUR_CARD_PHASES = {"serve_mesh4", "mesh4", "trainer4", "health4"}
+# the data-plane phases a run may name alone too (``python3 chip_smoke.py
+# data_trainer data_vit``): data_trainer runs train and trainer first,
+# data_vit runs vit_train first, the phases each is held to
+DATA_PHASES = {"data_trainer", "data_vit"}
 # vit_train: ViT-B/16 at its published width, images per step and timed
 # steps
 VIT_BATCH = 256
 VIT_STEPS = 3
+# data_trainer: token rows of its dataset (the loop's six steps take one
+# each; the rest land after them); data_vit: batches of its dataset, of
+# them warm-up steps
+DATA_TRAINER_ROWS = 9
+DATA_VIT_BATCHES = 8
+DATA_VIT_WARMUP = 2
 # the health plane end to end: steps and step seconds of the reference's
 # loop on three host slots; on four cards steps and each step's bf16
 # matmuls of HEALTH4_N square (~70 ms).  The degraded steps must outlast
@@ -2542,7 +2581,7 @@ def union_ms(events):
     return total / 1e3
 
 
-def device_profile(fn, start=None):
+def device_profile(fn, start=None, copies=False):
     """One call of ``fn`` under ``device_events``: device ms by kernel
     name, and its busy time split by stream use: ``device_busy_ms`` (the
     union of every kernel's interval), ``nccl_ms`` (of NCCL's kernels),
@@ -2550,8 +2589,11 @@ def device_profile(fn, start=None):
     ``call_ms``, the call's own wall from its start to the card's end.
     ``start`` runs first inside the window, outside ``call_ms``: for
     ranks of a group a host barrier, so that no rank's collectives count
-    the time it waits for a peer still starting its profiler.  ``({},
-    {})`` when the profiler recorded no device activity."""
+    the time it waits for a peer still starting its profiler.  With
+    ``copies``, also ``h2d_copies`` and ``h2d_copy_ms``: the copies from
+    page-locked host memory to the card that ran in the window, from any
+    thread of the process, and their device ms.  ``({}, {})`` when the
+    profiler recorded no device activity."""
     import torch
 
     wall = []
@@ -2572,9 +2614,28 @@ def device_profile(fn, start=None):
     comp = [e for e in events if "nccl" not in e.name.lower()]
     busy, nccl_ms, comp_ms = union_ms(events), union_ms(nccl), \
         union_ms(comp)
-    return by_kernel_name(events), {
-        "device_busy_ms": busy, "nccl_ms": nccl_ms, "compute_ms": comp_ms,
-        "overlap_ms": nccl_ms + comp_ms - busy, "call_ms": wall[0]}
+    split = {"device_busy_ms": busy, "nccl_ms": nccl_ms,
+             "compute_ms": comp_ms, "overlap_ms": nccl_ms + comp_ms - busy,
+             "call_ms": wall[0]}
+    if copies:
+        h2d = [e for e in events if "HtoD" in e.name and "Pinned" in e.name]
+        split.update(h2d_copies=len(h2d), h2d_copy_ms=sum(
+            e.time_range.elapsed_us() for e in h2d) / 1e3)
+    return by_kernel_name(events), split
+
+
+def h2d_from_trace(streams, columns, bytes_per_batch):
+    """The H2D copies' device ms per batch and GB/s, from the pinned
+    copies a ``device_profile(..., copies=True)`` window recorded (one
+    copy per column of a batch); "not measured" when it recorded none."""
+    if not streams.get("h2d_copies"):
+        return {"h2d_copy_ms_per_batch": "not measured",
+                "h2d_copy_gb_per_s": "not measured", "h2d_traced_batches": 0}
+    batches = streams["h2d_copies"] / columns
+    return {"h2d_copy_ms_per_batch": streams["h2d_copy_ms"] / batches,
+            "h2d_copy_gb_per_s": bytes_per_batch * batches
+            / streams["h2d_copy_ms"] / 1e6,
+            "h2d_traced_batches": batches}
 
 
 def idle_share(streams, wall_ms):
@@ -3129,6 +3190,182 @@ def phase_trainer(train_run):
     if not out["allreduced_losses_bit_equal"]:
         raise AssertionError(f"trainer: an allreduced loss differs from "
                              f"its loss: {out['steps']}")
+    return out
+
+
+def data_trainer_rows(vocab_size, rows=DATA_TRAINER_ROWS):
+    """The ``data_trainer`` dataset's token rows, ``[rows, SEQ + 1]``
+    int64 on the host: the first is exactly the batch ``trainer_loop``
+    draws (seed 4 on the card, moved to the host), the rest from numpy's
+    generator seeded 5."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    first = torch.randint(0, vocab_size, (1, SEQ + 1), generator=gen,
+                          device="cuda").cpu().numpy()
+    rest = np.random.default_rng(5).integers(
+        0, vocab_size, (rows - 1, SEQ + 1), dtype=np.int64)
+    return np.concatenate([first, rest])
+
+
+def _landed_row(tokens):
+    return {"sum": int(tokens.sum()), "shape": list(tokens.shape),
+            "dtype": str(tokens.dtype), "device": str(tokens.device)}
+
+
+def data_trainer_loop(config):
+    """The ``data_trainer`` phase's loop, in its one worker process:
+    ``trainer_loop``'s model, optimizer and seed (``train_config()``,
+    seed 0), its batches read from the run's ``train`` dataset shard
+    through ``iter_torch_batches(batch_size=1, prefetch_batches=2)``: two
+    warm-up, ``TRAIN_STEPS`` timed and one profiled step, one batch each,
+    then the shard's remaining batches.  Reports each step: the loss, its
+    wall (the profiled step's under the profiler, its batch's fetch
+    included, with its busy ms and the pinned H2D copies the trace
+    recorded), how long ``next`` waited for its batch, its K1/K2/K3
+    launches and the landed batch's int64 sum, shape, dtype and device;
+    then one row with
+    the remaining batches' sums and shapes, the shard's ingest stats and
+    the segment its split channel used."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               make_llama_trainer)
+
+    ctx = train.get_context()
+    dev = ctx.get_device()
+    cfg = train_config()
+    tr = make_llama_trainer(cfg, optimizer=default_optimizer(
+        warmup=1, decay_steps=1000), device=dev)
+    state = tr.init_state(seed=0)
+    shard = train.get_dataset_shard("train")
+    batches = shard.iter_torch_batches(batch_size=1, prefetch_batches=2)
+    out = {}
+    _zero_launches()
+    kinds = ["warmup"] * 2 + ["timed"] * TRAIN_STEPS + ["profiled"]
+    for i, kind in enumerate(kinds):
+        torch.cuda.synchronize()
+
+        def fetch():
+            t0 = time.perf_counter()
+            out["tokens"] = next(batches)["data"]
+            out["blocked_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        def step():
+            nonlocal state
+            state, m = tr.step(state, {"tokens": out["tokens"]})
+            out["loss"] = m["loss"]
+
+        before = _launch_counts()
+        h2d = {}
+        if kind == "profiled":
+            # the batch is fetched in the window too: the stager copies
+            # the next batch as soon as this one is taken
+            _, streams = device_profile(lambda: (fetch(), step()),
+                                        copies=True)
+            if not streams:
+                raise AssertionError("data_trainer: the profiler recorded "
+                                     "no device activity")
+            wall, busy = streams["call_ms"], streams["device_busy_ms"]
+            h2d = {k: streams[k] for k in ("h2d_copies", "h2d_copy_ms")}
+        else:
+            fetch()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall, busy = 1e3 * (time.perf_counter() - t0), "not measured"
+        train.report({"step": i, "kind": kind, "loss": float(out["loss"]),
+                      "wall_ms": wall, "device_busy_ms": busy,
+                      "consumer_blocked_ms": out["blocked_ms"],
+                      "k1_k2_k3": [b - a for a, b in zip(
+                          before, _launch_counts())],
+                      "landed": _landed_row(out["tokens"]), **h2d})
+    rest = [_landed_row(b["data"]) for b in batches]
+    train.report({"kind": "ingest", "rest": rest,
+                  "stats": shard.ingest_stats.to_dict(),
+                  "segment": shard._source.name})
+
+
+def phase_data_trainer(trainer_run):
+    """The ``trainer`` phase's step fed by the data plane:
+    ``TorchTrainer(data_trainer_loop, datasets={"train": ds})`` on one
+    worker with the card, where ``ds`` is ``from_numpy`` of
+    ``data_trainer_rows`` (its first row ``trainer``'s batch).  Fails
+    unless the run ends without error, the first loss is bit-equal to
+    ``trainer``'s, K1, K2 and K3 launch once per layer per timed step,
+    every landed batch (all ``DATA_TRAINER_ROWS``) has its host row's
+    int64 sum and shape on ``cuda:0``, and the split's segment is gone
+    after ``fit()``.  Prints the H2D copy's device ms per batch (from the
+    profiled step's trace) and the stager's host ms, the time the loop waited
+    for each batch, the step wall beside ``trainer``'s and the idle
+    share of the timed steps' wall by the profiled step's busy time."""
+    import ray_tpu_torch.data as td
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    allocated = memory_before_spawn("data_trainer")
+    rows = data_trainer_rows(train_config().vocab_size)
+    t_fit = time.time()
+    result = TorchTrainer(
+        data_trainer_loop, datasets={"train": td.from_numpy(rows)},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+    fit_s = time.time() - t_fit
+    if result.error is not None:
+        raise AssertionError(f"data_trainer: {result.error}")
+    steps = result.metrics_history
+    ingest = steps.pop()
+    timed = [r for r in steps if r["kind"] == "timed"]
+    step_ms = sum(r["wall_ms"] for r in timed) / len(timed)
+    launches = {k: sum(r["k1_k2_k3"][i] for r in timed)
+                for i, k in enumerate(("K1", "K2", "K3"))}
+    landed = [r["landed"] for r in steps] + ingest["rest"]
+    want = [{"sum": int(row.sum()), "shape": [1, SEQ + 1],
+             "dtype": "torch.int64", "device": "cuda:0"} for row in rows]
+    stats = ingest["stats"]
+    profiled = steps[-1]
+    loss0 = steps[0]["loss"]
+    out = {
+        "workers": 1, "allocated_before_spawn_gb": allocated,
+        "dataset": {"rows": len(rows), "row_shape": [SEQ + 1],
+                    "dtype": "int64", "blocks": 1,
+                    "batch": "iter_torch_batches(batch_size=1, "
+                             "prefetch_batches=2)"},
+        "fit_s": fit_s, "step_ms": step_ms,
+        "trainer_step_ms": trainer_run["step_ms"],
+        "step_ms_minus_trainer": step_ms - trainer_run["step_ms"],
+        "device_busy_ms": profiled["device_busy_ms"],
+        "idle_share": 1 - profiled["device_busy_ms"] / step_ms,
+        "trainer_idle_share": trainer_run["idle_share"],
+        "consumer_blocked_ms_per_step": [r["consumer_blocked_ms"]
+                                         for r in steps],
+        **h2d_from_trace(profiled, 1, (SEQ + 1) * 8),
+        "h2d_host_ms_per_batch": 1e3 * stats["h2d_s"]
+        / max(1, stats["batches"]),
+        "h2d_bytes_per_batch": stats["h2d_bytes"]
+        / max(1, stats["h2d_batches"]),
+        "pinned_bytes": stats["pinned_bytes"],
+        "ingest_stats": {k: v for k, v in stats.items() if k != "iterator"},
+        "launches": launches,
+        "launches_per_step": {k: c / len(timed) for k, c in launches.items()},
+        "losses": [r["loss"] for r in steps],
+        "first_loss_bit_equal_to_trainer": loss0 == trainer_run["losses"][0],
+        "landed_batches_equal_host_rows": landed == want,
+        "landed_batches": len(landed),
+        "segment_left_after_fit": os.path.exists(
+            f"/dev/shm/{ingest['segment']}"),
+        "steps": steps}
+    check_train("data_trainer", {**out, "grad_norms": []},
+                {"K1": TRAIN_LAYERS, "K2": TRAIN_LAYERS, "K3": TRAIN_LAYERS})
+    if not out["first_loss_bit_equal_to_trainer"]:
+        raise AssertionError(f"data_trainer: first loss {loss0}, trainer's "
+                             f"{trainer_run['losses'][0]} (bit-equal)")
+    if not out["landed_batches_equal_host_rows"]:
+        raise AssertionError(f"data_trainer: landed {landed}, the host "
+                             f"rows {want}")
+    if out["segment_left_after_fit"]:
+        raise AssertionError(f"data_trainer: segment {ingest['segment']} "
+                             "outlived fit()")
     return out
 
 
@@ -3888,6 +4125,143 @@ def phase_vit_train(device="cuda", batch=VIT_BATCH, steps=VIT_STEPS,
     return out
 
 
+def vit_data_blocks(cfg, batch, batches, seed=4):
+    """``batches`` blocks of ``batch`` uint8 images ``[b, H, W, C]`` and
+    int64 labels, from numpy's generator seeded ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (batch, cfg.image_size, cfg.image_size, cfg.num_channels)
+    return [{"images": rng.integers(0, 256, shape, dtype=np.uint8),
+             "labels": rng.integers(0, cfg.num_classes, batch,
+                                    dtype=np.int64)}
+            for _ in range(batches)]
+
+
+def phase_data_vit(vit_run, device="cuda", batch=VIT_BATCH,
+                   batches=DATA_VIT_BATCHES, warmup=DATA_VIT_WARMUP):
+    """``vit_train``'s step (ViT-B/16, seed 0, the same optimizer) fed by
+    ``iter_torch_batches(dtypes={"images": torch.float32},
+    prefetch_batches=2)`` over ``from_blocks`` of ``vit_data_blocks``
+    (one block per batch), in this process: ``warmup`` steps, then the
+    rest chained and ended by one ``synchronize()``, as ``vit_train``
+    times its steps.  Every landed batch is held, then compared bit for
+    bit with ``torch.from_numpy(host).to(device, torch.float32)`` (the
+    labels with their host rows); every loss must be finite and K1, K2
+    and K3 must not launch.  The last warm-up step, its batch's fetch
+    included, runs under the profiler, which records the pinned copies
+    the stager makes meanwhile from its own thread.  Prints images/s and
+    step ms beside ``vit_train``'s, how long each step waited for its
+    batch, the host cast, the H2D copies' device ms and rate per batch
+    (from that trace), each of the cast and the copy alone with the card
+    idle, the page-locked bytes and peak memory (with the held
+    batches)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch.data as td
+    from ray_tpu_torch.models.training import default_optimizer
+    from ray_tpu_torch.models.vit import ViTConfig, make_vit_trainer
+
+    cfg = ViTConfig.vit_b16()
+    t0 = time.perf_counter()
+    blocks = vit_data_blocks(cfg, batch, batches)
+    make_s = time.perf_counter() - t0
+    tr = make_vit_trainer(cfg, optimizer=default_optimizer(
+        warmup=1, decay_steps=1000), device=device)
+    state = tr.init_state(seed=0)
+    it = td.from_blocks(blocks).iterator()
+    feed = it.iter_torch_batches(batch_size=batch,
+                                 dtypes={"images": torch.float32},
+                                 device=device, prefetch_batches=2)
+    landed, losses, blocked_ms = [], [], []
+
+    def step():
+        nonlocal state
+        t0 = time.perf_counter()
+        b = next(feed)
+        blocked_ms.append(1e3 * (time.perf_counter() - t0))
+        state, m = tr.step(state, b)
+        losses.append(m["loss"])
+        landed.append(b)
+
+    _zero_launches()
+    for _ in range(warmup - 1):
+        step()
+    _, streams = device_profile(step, copies=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(batches - warmup):
+        step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (batches - warmup)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if next(feed, None) is not None:
+        raise AssertionError("data_vit: the feed has more batches than "
+                             "its dataset")
+    stats = it.ingest_stats.to_dict()
+    equal = [torch.equal(b["images"], torch.from_numpy(h["images"]).to(
+        device, torch.float32)) and torch.equal(
+        b["labels"], torch.from_numpy(h["labels"]).to(device))
+        for b, h in zip(landed, blocks)]
+    launches = dict(zip(("K1", "K2", "K3"), _launch_counts()))
+    losses = [float(x) for x in losses]
+    n = max(1, stats["h2d_batches"])
+    alone = {"host_cast_alone_ms": "not measured",
+             "h2d_copy_alone_ms": "not measured"}
+    if torch.device(device).type == "cuda":
+        # each host-side cost alone, the card idle: one batch's cast into
+        # a page-locked buffer on this thread, and that buffer's copy
+        pinned = torch.empty(landed[0]["images"].shape, dtype=torch.float32,
+                             pin_memory=True)
+        t0 = time.perf_counter()
+        for h in blocks[:3]:
+            np.copyto(pinned.numpy(), h["images"], casting="unsafe")
+        alone["host_cast_alone_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+        dst = torch.empty_like(landed[0]["images"])
+        alone["h2d_copy_alone_ms"] = cuda_ms(
+            lambda: dst.copy_(pinned, non_blocking=True), 5)
+        alone["h2d_copy_alone_gb_per_s"] = pinned.nbytes / alone[
+            "h2d_copy_alone_ms"] / 1e6
+    out = {"model": "vit_b16", "batch": batch, "batches": batches,
+           "warmup_steps": warmup, "timed_steps": batches - warmup,
+           "dataset": {"images": [batch, cfg.image_size, cfg.image_size,
+                                  cfg.num_channels], "images_dtype": "uint8",
+                       "labels_dtype": "int64", "blocks": batches,
+                       "host_mb_per_batch": blocks[0]["images"].nbytes / 1e6,
+                       "landed_mb_per_batch": blocks[0]["images"].size * 4
+                       / 1e6, "make_s": make_s},
+           "step_ms": 1e3 * step_s, "images_per_s": batch / step_s,
+           "vit_train_step_ms": vit_run["step_ms"],
+           "vit_train_images_per_s": vit_run["images_per_s"],
+           "step_ms_minus_vit_train": 1e3 * step_s - vit_run["step_ms"],
+           "consumer_blocked_ms_per_step": blocked_ms[warmup:],
+           "consumer_blocked_ms_warmup": blocked_ms[:warmup],
+           "host_cast_ms_per_batch": 1e3 * stats["host_cast_s"]
+           / max(1, stats["batches"]),
+           "h2d_host_ms_per_batch": 1e3 * stats["h2d_s"]
+           / max(1, stats["batches"]),
+           **h2d_from_trace(streams, len(blocks[0]), stats["h2d_bytes"] / n),
+           "h2d_bytes_per_batch": stats["h2d_bytes"] / n, **alone,
+           "pinned_bytes": stats["pinned_bytes"],
+           "peak_memory_gb": peak_gb,
+           "held_batches_gb": sum(t.numel() * t.element_size()
+                                  for b in landed for t in b.values()) / 1e9,
+           "ingest_stats": {k: v for k, v in stats.items() if k != "iterator"},
+           "launches": launches, "losses": losses,
+           "landed_equal_host_cast": equal}
+    if not (len(equal) == batches and all(equal)):
+        raise AssertionError(f"data_vit: landed batches equal to the host "
+                             f"cast: {equal}")
+    if launches != {"K1": 0, "K2": 0, "K3": 0}:
+        raise AssertionError(f"data_vit: K1/K2/K3 launched {launches} "
+                             "times with the attention pinned to 'ref'")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"data_vit: losses {losses}")
+    return out
+
+
 def health_probe_check():
     """In a process bound to ``cuda:0`` (``run_bound``): the health
     probe's payload, then ``device_memory_stats()`` with 1 GiB allocated
@@ -4165,7 +4539,7 @@ def main(argv) -> int:
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
-    if set(argv) - FOUR_CARD_PHASES:
+    if set(argv) - FOUR_CARD_PHASES - DATA_PHASES:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     smi = phase_env()
     if argv:
@@ -4191,6 +4565,31 @@ def main(argv) -> int:
                       **phase_trainer4(mesh4)})
         if "health4" in argv:
             emit({"phase": "health4", **phase_health4()})
+        if "data_trainer" in argv:
+            train_cfg = train_config()
+            train = phase_train(train_cfg)
+            emit({"phase": "train", "model": "llama2_7b",
+                  "layers": TRAIN_LAYERS, **train})
+            check_train("train", train, {"K1": TRAIN_LAYERS,
+                                         "K2": TRAIN_LAYERS,
+                                         "K3": TRAIN_LAYERS})
+            gc.collect()
+            torch.cuda.empty_cache()
+            trainer = phase_trainer(train)
+            emit({"phase": "trainer", "model": "llama2_7b", **trainer})
+            emit({"phase": "data_trainer", "model": "llama2_7b",
+                  "layers": TRAIN_LAYERS, "depth_cut": DEPTH_CUT,
+                  "batch": 1, "seq": SEQ,
+                  "remat_policy": train_cfg.remat_policy,
+                  **phase_data_trainer(trainer)})
+        if "data_vit" in argv:
+            gc.collect()
+            torch.cuda.empty_cache()
+            vit = phase_vit_train()
+            emit({"phase": "vit_train", **vit})
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit({"phase": "data_vit", **phase_data_vit(vit)})
         print(smi, flush=True)
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4294,6 +4693,13 @@ def main(argv) -> int:
           "remat_policy": train_cfg.remat_policy, **trainer})
     resume = phase_trainer_resume()
     emit({"phase": "trainer_resume", **resume})
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_trainer = phase_data_trainer(trainer)
+    emit({"phase": "data_trainer", "model": "llama2_7b",
+          "layers": TRAIN_LAYERS, "depth_cut": DEPTH_CUT, "batch": 1,
+          "seq": SEQ, "remat_policy": train_cfg.remat_policy,
+          **data_trainer})
     trainer4 = None
     if mesh4 is not None:
         trainer4 = phase_trainer4(mesh4)
@@ -4364,6 +4770,10 @@ def main(argv) -> int:
     emit({"phase": "vit_train", **vit})
     gc.collect()
     torch.cuda.empty_cache()
+    data_vit = phase_data_vit(vit)
+    emit({"phase": "data_vit", **data_vit})
+    gc.collect()
+    torch.cuda.empty_cache()
     health = phase_health()
     emit({"phase": "health", **health})
     health4 = None
@@ -4383,13 +4793,16 @@ def main(argv) -> int:
 
     def by_path(name):
         """Kernel ``name``'s launches on each train path (the trainer
-        paths' in their workers: ``trainer``'s timed steps, all of
-        ``trainer_resume``'s steps, rank 0's timed ``trainer4`` steps)."""
+        paths' in their workers: ``trainer``'s and ``data_trainer``'s
+        timed steps, all of ``trainer_resume``'s steps, rank 0's timed
+        ``trainer4`` steps)."""
         out = {path: run["launches"][name]
                for path, run in train_paths.items()}
         out["trainer"] = trainer["launches"][name]
         out["trainer_resume"] = resume["launches"][name]
+        out["data_trainer"] = data_trainer["launches"][name]
         out["vit_train"] = vit["launches"][name]
+        out["data_vit"] = data_vit["launches"][name]
         if trainer4 is not None:
             out["trainer4"] = int(MESH_STEPS * trainer4["k1_k2_k3_per_step"][
                 ("K1", "K2", "K3").index(name)])

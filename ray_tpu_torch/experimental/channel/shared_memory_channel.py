@@ -17,7 +17,7 @@ exactly one writer and each reader owns its ack slot):
 
 The high bit of the ``n_readers`` word marks the channel closed; the
 writer never stores to that word, so a close is sticky even mid-write.
-Waits are bounded spin + sleep.
+Waits are a short hot spin, then sleeps that back off from 0.1 ms to 1 ms.
 
 Not ported: the reference's native data plane (``ray_tpu/_native/``
 channel.cc, the ``_NATIVE_BIT`` mode) and ``CompositeChannel``; a segment
@@ -37,6 +37,9 @@ _U64 = struct.Struct("<Q")
 _HDR = 24  # version, payload_len, n_readers
 _CLOSED_BIT = 1 << 63  # high bit of the n_readers word: channel torn down
 _NATIVE_BIT = 1 << 62  # the reference's native data plane owns the segment
+# a wait's sleeps after its hot spin: from the first to the longest
+_SLEEP_MIN_S = 0.0001
+_SLEEP_MAX_S = 0.001
 
 
 class ChannelTimeoutError(TimeoutError):
@@ -114,7 +117,7 @@ class Channel:
 
     def _wait(self, pred, timeout: Optional[float], what: str) -> None:
         deadline = None if timeout is None else time.monotonic() + timeout
-        spins = 0
+        spins, delay = 0, _SLEEP_MIN_S
         while not pred():
             if self._is_closed():
                 raise ChannelClosedError(f"channel {self.name} closed")
@@ -124,9 +127,13 @@ class Channel:
             if deadline is not None and time.monotonic() > deadline:
                 raise ChannelTimeoutError(
                     f"channel {self.name}: timeout waiting for {what}")
-            time.sleep(0.0001)
+            # sleep, with backoff: a long wait must not keep taking the
+            # interpreter lock from the process's other threads
+            time.sleep(delay)
+            delay = min(2 * delay, _SLEEP_MAX_S)
 
-    def _wait_readers(self, timeout: Optional[float]) -> None:
+    def wait_readers(self, timeout: Optional[float] = None) -> None:
+        """Wait until every reader has consumed the last value written."""
         v = self._version()
         self._wait(
             lambda: all(self._ack(r) >= v for r in range(self.num_readers)),
@@ -144,7 +151,7 @@ class Channel:
         self._check_size(len(payload))
         if self._is_closed():
             raise ChannelClosedError(f"channel {self.name} closed")
-        self._wait_readers(timeout)
+        self.wait_readers(timeout)
         self._payload(len(payload))[:] = payload
         _count_copy(len(payload))
         _U64.pack_into(self._seg.buf, 8, len(payload))
@@ -177,7 +184,7 @@ class Channel:
         self._check_size(nbytes)
         if self._is_closed():
             raise ChannelClosedError(f"channel {self.name} closed")
-        self._wait_readers(timeout)
+        self.wait_readers(timeout)
         return self._payload(nbytes)
 
     def commit_write(self, nbytes: int) -> None:

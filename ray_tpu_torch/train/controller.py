@@ -113,6 +113,8 @@ class TrainController:
         self._drains_handled: set = set()
         # planned migrations (quarantine drains) taken, not charged
         self.drain_restarts = 0
+        # the streaming_splits feeding the running group
+        self._splits: List[Any] = []
 
     # -- units and the node-health ladder ----------------------------------
     def _units(self) -> List[str]:
@@ -194,12 +196,31 @@ class TrainController:
                 time.sleep(1.0)
 
     def _split_datasets(self, n: int) -> Optional[List[Any]]:
-        """One shard dict per rank; every dataset is a plain iterable,
-        replicated to each rank (the reference's case for non-``Dataset``
-        values)."""
+        """One shard dict per rank: a ``ray_tpu_torch.data.Dataset``
+        becomes ``streaming_split(n, equal=True)``, a fresh split per
+        attempt (the previous attempt's is shut down and its segments
+        destroyed first); any other value is replicated to each rank."""
+        self._shutdown_splits()
         if not self.datasets:
             return None
-        return [dict(self.datasets) for _ in range(n)]
+        from ray_tpu_torch.data import Dataset
+
+        per_rank: List[Dict[str, Any]] = [dict() for _ in range(n)]
+        for name, ds in self.datasets.items():
+            if isinstance(ds, Dataset):
+                parts = ds.streaming_split(n, equal=True)
+                self._splits.append(parts)
+                for r in range(n):
+                    per_rank[r][name] = parts[r]
+            else:
+                for r in range(n):
+                    per_rank[r][name] = ds
+        return per_rank
+
+    def _shutdown_splits(self) -> None:
+        """Stop every split of this run and destroy its segments."""
+        while self._splits:
+            self._splits.pop().shutdown()
 
     # -- run status ---------------------------------------------------------
     def _publish_status(self, group, status: str) -> None:
@@ -343,6 +364,7 @@ class TrainController:
             raise
         finally:
             group.shutdown()
+            self._shutdown_splits()
             self._publish_status(
                 group, "FAILED" if error is not None else "FINISHED")
 

@@ -265,6 +265,12 @@ def _torch_device():
     return torch.device("cpu")
 
 
+def worker_device():
+    """This train worker's ``torch.device``, or ``None`` outside a train
+    loop."""
+    return _torch_device() if _session is not None else None
+
+
 def get_mesh():
     """The resolved ``DeviceMesh`` for this worker generation.
 
@@ -449,9 +455,12 @@ def get_context() -> TrainContext:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This rank's dataset shard (parity: ``ray.train.get_dataset_shard``):
-    the value passed as ``DataParallelTrainer(datasets={name: ds})``,
-    replicated to every rank (the reference's plain-iterable case)."""
+    """This rank's dataset shard (parity: ``ray.train.get_dataset_shard``)
+    of ``DataParallelTrainer(datasets={name: ds})``: for a
+    ``ray_tpu_torch.data.Dataset``, this rank's ``DataIterator`` of a
+    ``streaming_split(world_size, equal=True)`` made for this attempt
+    (``iter_torch_batches`` lands its batches on this worker's device);
+    any other value, replicated to every rank."""
     s = _get_session()
     shards = s.dataset_shard
     if shards is None:

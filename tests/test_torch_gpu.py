@@ -634,3 +634,90 @@ def test_swiglu_op_autograd_on_card(dtype):
         outs.append((out.detach(), g.grad, u.grad))
     for a, b in zip(*outs):
         assert a.dtype == dtype and a.is_cuda and torch.equal(a, b)
+
+
+def _image_dataset(batches, batch, seed=4, size=64):
+    """``batches`` blocks of ``batch`` uint8 images and int64 labels."""
+    import numpy as np
+
+    import ray_tpu_torch.data as td
+
+    rng = np.random.default_rng(seed)
+    blocks = [{"images": rng.integers(0, 256, (batch, size, size, 3),
+                                      dtype=np.uint8),
+               "labels": rng.integers(0, 1000, batch).astype(np.int64)}
+              for _ in range(batches)]
+    return td.from_blocks(blocks), blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_iter_torch_batches_lands_host_rows_on_card(prefetch):
+    """``device=None`` lands on the card; every batch equals its host rows
+    cast on the card, and the copies ran from page-locked staging."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ds, blocks = _image_dataset(6, 16)
+    it = ds.iterator()
+    got = list(it.iter_torch_batches(
+        batch_size=16, dtypes={"images": torch.float32},
+        prefetch_batches=prefetch))
+    assert len(got) == len(blocks)
+    for b, host in zip(got, blocks):
+        assert b["images"].is_cuda and b["images"].dtype == torch.float32
+        assert torch.equal(b["images"], torch.from_numpy(host["images"]).to(
+            "cuda", torch.float32))
+        assert torch.equal(b["labels"], torch.from_numpy(host["labels"]).cuda())
+    stats = it.ingest_stats.to_dict()
+    assert stats["pinned_bytes"] > 0
+    assert stats["h2d_batches"] == len(blocks)
+    assert stats["h2d_bytes"] == sum(
+        h["images"].size * 4 + h["labels"].nbytes for h in blocks)
+
+
+@pytest.mark.gpu
+def test_iter_torch_batches_stream_order_with_three_batches_held():
+    """Three landed batches held at once while the stager reuses its two
+    slots, each read by queued work on the consumer's stream: the event
+    wait and ``record_stream`` keep every batch intact under load."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import ray_tpu_torch.data as td
+
+    rows, cols = 64, 1 << 16  # 16 MiB of fp32 per batch
+    host = np.arange(8 * rows * cols, dtype=np.int32).reshape(8 * rows, cols)
+    it = td.from_numpy(host).iter_torch_batches(
+        batch_size=rows, dtypes={"data": torch.float32}, prefetch_batches=2)
+    held, sums = [], []
+    w = torch.randn(cols, 256, device="cuda")
+    for i, b in enumerate(it):
+        # queue a long read of the batch on the consumer's stream
+        for _ in range(20):
+            y = b["data"] @ w
+        sums.append(y.sum())
+        held.append(b)
+        if len(held) > 3:
+            held.pop(0)
+        for j, h in enumerate(held):
+            start = (i - len(held) + 1 + j) * rows
+            want = torch.from_numpy(host[start:start + rows]).to(
+                "cuda", torch.float32)
+            assert torch.equal(h["data"], want)
+    torch.cuda.synchronize()
+    assert len(sums) == 8 and all(torch.isfinite(s) for s in sums)
+
+
+@pytest.mark.gpu
+def test_to_tensors_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ds, blocks = _image_dataset(2, 8, size=16)
+    out = ds.to_tensors()
+    assert out["images"].is_cuda and out["images"].dtype == torch.uint8
+    import numpy as np
+
+    want = np.concatenate([b["images"] for b in blocks])
+    assert torch.equal(out["images"].cpu(), torch.from_numpy(want))
+    assert out["labels"].is_cuda

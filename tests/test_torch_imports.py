@@ -1,5 +1,6 @@
 """The port stands alone: ``ray_tpu_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of ``ray_tpu``, and the port lints clean."""
+neither ``jax`` nor anything of ``ray_tpu``, nor ``pyarrow`` or
+``pandas`` (the card's machine has neither), and the port lints clean."""
 
 import ast
 import os
@@ -23,8 +24,8 @@ def _port_sources():
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "orbax") \
-        or top == "ray_tpu"
+    return top in ("jax", "jaxlib", "flax", "optax", "orbax", "pyarrow",
+                   "pandas") or top == "ray_tpu"
 
 
 def test_port_sources_exist():
@@ -78,9 +79,17 @@ def test_import_leaves_jax_and_reference_unloaded():
         "ray_tpu_torch.train.controller, ray_tpu_torch.train.trainer, "
         "ray_tpu_torch.models.vit, ray_tpu_torch.util.health, "
         "ray_tpu_torch._private.health_plane, "
-        "ray_tpu_torch._private.node_faults\n"
+        "ray_tpu_torch._private.node_faults, "
+        "ray_tpu_torch._private.concurrency, ray_tpu_torch.data, "
+        "ray_tpu_torch.data.context, ray_tpu_torch.data.block, "
+        "ray_tpu_torch.data._tasks, ray_tpu_torch.data.transforms, "
+        "ray_tpu_torch.data.logical, ray_tpu_torch.data.planner, "
+        "ray_tpu_torch.data.operators, "
+        "ray_tpu_torch.data.streaming_executor, "
+        "ray_tpu_torch.data.datasource, ray_tpu_torch.data.iterator, "
+        "ray_tpu_torch.data.dataset\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ray_tpu'))\n"
+        "('jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
