@@ -12,7 +12,9 @@ run alone, after the ``env`` phase: ``python3 chip_smoke.py mesh4`` runs
 combine, as in ``python3 chip_smoke.py serve_mesh4 trainer4``.  On one
 card the data-plane phases run alone the same way: ``data_trainer``
 runs ``train``, ``trainer`` and ``data_trainer``, ``data_vit`` runs
-``vit_train`` and ``data_vit``.)
+``vit_train`` and ``data_vit``; so do the serving front's:
+``llm_server``, ``llm_disagg`` (after ``llm_server``) and
+``llm_batch``.)
 
 Phases, each printing one JSON line:
 
@@ -124,6 +126,30 @@ Phases, each printing one JSON line:
    decode engine's rate with and without an idle landing thread
    polling, in turns) and the agreement with the ``serve`` phase's
    colocated tokens.
+9b. ``llm_server``: the serving front on the same model, by name in a
+   replica process on the card: ``serve.start`` (the HTTP proxy on a free
+   loopback port) and ``serve.run(build_llm_deployment(...))``.  The five
+   serve prompts one at a time over HTTP as SSE streams must each add up
+   to, and equal, an in-process engine's answer on this process's
+   same-seed weights; warm, a unary answer and its stream must be equal;
+   then the five at once through the handle.  It prints the replica's
+   start, each request's time to first token and end to end, the engine
+   steps of the sequential and the concurrent five, the decode rate, and
+   the K1-K4 launches counted in the replica process.
+9c. ``llm_disagg``: a prefill and a decode replica behind the ingress
+   (``build_disaggregated_llm_deployment``, a chunk budget of
+   ``max_len``): the five prompts over HTTP and through
+   ``disaggregated_handle().stream``, each answer equal to
+   ``llm_server``'s; every request exported and adopted over the device
+   tier, none re-prefilled.  It prints per hand-off the prefill, export,
+   ship, land and adopt times (export and adopt in device time, from
+   CUDA events), and the K1-K4 launches counted in both replicas.
+9d. ``llm_batch``: ``build_llm_processor`` over twelve text prompts in
+   batches of four, its engine built in the actor from this process's
+   weights; the rows must equal an in-process engine's ``generate`` on
+   the same batches.  The replicas are shut down before the training
+   phases; ``python3 chip_smoke.py llm_server llm_disagg llm_batch`` runs
+   the three alone.
 10. ``train``: the 7B serving weights are freed, then ``make_llama_trainer``
    at Llama-2-7B width cut to 16 layers (fp32 params and AdamW state,
    bf16 activations, ``save_attn``) takes two warm-up and three timed
@@ -304,6 +330,15 @@ FOUR_CARD_PHASES = {"serve_mesh4", "mesh4", "trainer4", "health4"}
 # data_trainer data_vit``): data_trainer runs train and trainer first,
 # data_vit runs vit_train first, the phases each is held to
 DATA_PHASES = {"data_trainer", "data_vit"}
+# the serving front's phases a run may name alone too (``python3
+# chip_smoke.py llm_server llm_disagg llm_batch``; llm_disagg runs
+# llm_server first, whose answers it is held to); the serve phase's
+# engine by name (Llama-2-7B, bf16 weights from seed 0), and the batch
+# phase's rows and batch
+SERVING_PHASES = {"llm_server", "llm_disagg", "llm_batch"}
+LLM_ENGINE_KW = {"model": "llama2_7b", "batch_slots": SERVE_SLOTS,
+                 "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK}
+LLM_BATCH_ROWS, LLM_BATCH_SIZE = 12, 4
 # vit_train: ViT-B/16 at its published width, images per step and timed
 # steps
 VIT_BATCH = 256
@@ -2708,6 +2743,309 @@ def profile_decode_window(eng, vocab_size, start=None):
             "idle_share": 1 - busy_ms / wall_ms, "top_kernels_ms": top}
 
 
+def _post(port, path, body, timeout=300):
+    """One JSON request to the serve proxy; the decoded answer."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _post_sse(port, path, body, timeout=300):
+    """One Server-Sent Events request to the serve proxy: its chunks, the
+    seconds to the first chunk and to the last."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json",
+                 "Accept": "text/event-stream"}, method="POST")
+    t0 = time.perf_counter()
+    chunks, ttft = [], None
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for line in resp:
+            if line.startswith(b"event: error"):
+                raise AssertionError(f"{path}: the stream failed: "
+                                     f"{resp.read()[:2000]!r}")
+            if line.startswith(b"data: "):
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                chunks.append(json.loads(line[len(b"data: "):]))
+    return chunks, ttft, time.perf_counter() - t0
+
+
+def _streamed_answer(chunks, what):
+    """The done chunk's answer; fails unless the text chunks, in index
+    order, add up to its text."""
+    done = chunks[-1] if chunks else {}
+    parts = chunks[:-1]
+    if not done.get("done") or [c["index"] for c in parts] != \
+            list(range(len(parts))) or "".join(
+                c["text"] for c in parts) != done["generated_text"]:
+        raise AssertionError(f"{what}: chunks {chunks[:3]}... do not add "
+                             f"up to the done chunk {done}")
+    return {k: done[k] for k in ("generated_text", "num_generated_tokens")}
+
+
+def _answers_equal(got, want, what):
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"{what}: requests {bad} differ: "
+                             f"{[got[i] for i in bad]} against "
+                             f"{[want[i] for i in bad]}")
+
+
+def llm_bodies(vocab_size):
+    """The serve phase's five prompts as token-id lists, greedy, its new
+    tokens."""
+    return [{"prompt": p, "max_tokens": SERVE_NEW_TOKENS, "temperature": 0.0}
+            for p in serve_prompts(vocab_size)]
+
+
+def phase_llm_server(cfg, params, smi):
+    """``LLMServer`` as a deployment: ``serve.start`` (the HTTP proxy on a
+    free loopback port), ``serve.run(build_llm_deployment(...))`` with
+    Llama-2-7B by name (bf16 weights from seed 0 built in the replica
+    process, on ``cuda:0``).  Cold, the five serve prompts one at a time
+    over HTTP as SSE streams: each stream's chunks must add up to its
+    text, and each answer must equal an in-process ``LLMEngine`` of the
+    same settings on this process's same-seed weights fed the prompts
+    one at a time (timed: ``in_process_e2e_s``).  Warm (the prefix cache
+    holds the prompts), the five
+    one at a time as unary HTTP requests, then the first again as a
+    stream, which must equal its unary answer; then the five at once
+    through the handle.  Reports the replica's start; per request the
+    time to first token and end to end as the replica records them
+    (from submission) and the client's seconds to the first streamed
+    chunk (a chunk waits for text that decodes whole) and to the last;
+    the engine steps of the sequential and the concurrent five, the
+    decode rate, and the K1-K4 launches of the replica process since its
+    engine was built, from the replica's stats after the requests."""
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.net import free_port
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.serving import _build_engine, build_llm_deployment
+
+    bodies = llm_bodies(cfg.vocab_size)
+    ref = _build_engine({**LLM_ENGINE_KW, "params": params}, 1)
+    sp = SamplingParams(temperature=0.0, max_tokens=SERVE_NEW_TOKENS,
+                        stop_token_id=ref.tokenizer.eos_id)
+    want, ref_s = [], []
+    for b in bodies:
+        t0 = time.perf_counter()
+        out = ref.generate([b["prompt"]], sp)[0]
+        ref_s.append(time.perf_counter() - t0)
+        want.append({"generated_text": out.text,
+                     "num_generated_tokens": len(out.token_ids)})
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    proxy = serve.start(http_options={"host": "127.0.0.1",
+                                      "port": free_port()})
+    try:
+        t0 = time.perf_counter()
+        handle = serve.run(build_llm_deployment(LLM_ENGINE_KW),
+                           name="llm_server", route_prefix="/llm")
+        start_s = time.perf_counter() - t0
+
+        def steps():
+            return handle.stats.remote().result(timeout=60)["engine_steps"]
+
+        s0 = steps()
+        cold, rows = [], []
+        for i, b in enumerate(bodies):
+            chunks, ttft, e2e = _post_sse(proxy.port,
+                                          "/llm?stream=1&method=stream", b)
+            cold.append(_streamed_answer(chunks, f"llm_server request {i}"))
+            rows.append({"prompt_tokens": len(b["prompt"]),
+                         "first_chunk_s": ttft, "e2e_s": e2e})
+        _answers_equal(cold, want, "llm_server: HTTP against the in-process "
+                       "engine")
+        s1 = steps()
+        warm = []
+        for i, b in enumerate(bodies):
+            t0 = time.perf_counter()
+            warm.append(_post(proxy.port, "/llm", b))
+            rows[i]["warm_unary_e2e_s"] = time.perf_counter() - t0
+        chunks, warm_first, warm_e2e = _post_sse(
+            proxy.port, "/llm?stream=1&method=stream", bodies[0])
+        _answers_equal([_streamed_answer(chunks, "llm_server warm stream")],
+                       warm[:1], "llm_server: the stream against its unary "
+                       "answer")
+        s2 = steps()
+        t0 = time.perf_counter()
+        outs = [r.result(timeout=300)
+                for r in [handle.remote(b) for b in bodies]]
+        concurrent_s = time.perf_counter() - t0
+        stats = handle.stats.remote().result(timeout=60)
+    finally:
+        serve.shutdown()
+    if not all(0 < o["num_generated_tokens"] <= SERVE_NEW_TOKENS
+               for o in outs):
+        raise AssertionError(f"llm_server: concurrent answers {outs}")
+    # the replica's own records, in request order: the cold five first
+    for row, rec, s in zip(rows, stats["requests"], ref_s):
+        row.update(ttft_s=rec["ttft_s"], replica_e2e_s=rec["e2e_s"],
+                   in_process_e2e_s=s)
+    t = stats["timing"]
+    return {"card": smi, "replica_start_s": start_s, "requests": rows,
+            "warm_stream_first_chunk_s": warm_first,
+            "warm_stream_e2e_s": warm_e2e,
+            "engine_steps_sequential": s1 - s0,
+            "engine_steps_concurrent": stats["engine_steps"] - s2,
+            "concurrent_wall_s": concurrent_s,
+            "texts_equal_in_process": True, "stream_equals_unary": True,
+            "decode_tokens_per_s": t["decode_tokens"] / t["decode_s"],
+            "prefill_tokens_per_s": t["prefill_tokens"] / t["prefill_s"],
+            "prefix_cache": stats["prefix_cache"],
+            "k1_k2_k3_k4_launches": stats["kernel_launches"],
+            "cold": cold, "warm": warm}
+
+
+def phase_llm_disagg(cfg, colocated, smi):
+    """The disaggregated app: ``build_disaggregated_llm_deployment`` with
+    one prefill and one decode replica (both on ``cuda:0``, Llama-2-7B by
+    name) behind the ingress.  The chunk budget is ``max_len``, so no
+    prompt of the phase is chunked and the prefill is ``llm_server``'s
+    (bf16 is not token-exact between GEMM shapes).  Cold, the five
+    prompts one at a time over HTTP; warm, through
+    ``disaggregated_handle().stream``: each answer must equal
+    ``llm_server``'s cold and warm one.  The prefill replica must have
+    exported and the decode replica adopted every request, nothing may
+    fall back to a re-prefill or prefill on the decode side, and every
+    hand-off must ride the device tier.  Reports per request TTFT and the
+    prefill, export, ship, land and adopt times, and the K1-K4 launches
+    of both replica processes since their engines were built."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.net import free_port
+    from ray_tpu_torch.experimental.channel.transport import TIER_DEVICE
+    from ray_tpu_torch.llm.serving import (build_disaggregated_llm_deployment,
+                                           disaggregated_handle)
+    from ray_tpu_torch.serve.router import DeploymentHandle
+
+    bodies = llm_bodies(cfg.vocab_size)
+    kw = {**LLM_ENGINE_KW, "prefill_chunk": SERVE_MAX_LEN}
+    proxy = serve.start(http_options={"host": "127.0.0.1",
+                                      "port": free_port()})
+    try:
+        t0 = time.perf_counter()
+        serve.run(build_disaggregated_llm_deployment(kw), name="llm_disagg",
+                  route_prefix="/llm")
+        start_s = time.perf_counter() - t0
+        rows, cold, warm = [], [], []
+        for b in bodies:
+            t0 = time.perf_counter()
+            cold.append(_post(proxy.port, "/llm", b))
+            rows.append({"prompt_tokens": len(b["prompt"]),
+                         "e2e_s": time.perf_counter() - t0})
+        _answers_equal(cold, colocated["cold"], "llm_disagg: HTTP against "
+                       "llm_server")
+        two = disaggregated_handle()
+        for i, b in enumerate(bodies):
+            t0 = time.perf_counter()
+            chunks, ttft = [], None
+            for c in two.stream(b):
+                ttft = time.perf_counter() - t0 if ttft is None else ttft
+                chunks.append(c)
+            warm.append(_streamed_answer(chunks, f"llm_disagg stream {i}"))
+            rows[i].update(warm_stream_first_chunk_s=ttft,
+                           warm_stream_e2e_s=time.perf_counter() - t0)
+        _answers_equal(warm, colocated["warm"], "llm_disagg: the streams "
+                       "against llm_server's warm answers")
+        pre = DeploymentHandle("LLMPrefill").stats.remote().result(timeout=60)
+        dec = DeploymentHandle("LLMDecode").stats.remote().result(timeout=60)
+    finally:
+        serve.shutdown()
+    n = 2 * len(bodies)
+    tiers = sorted({s["tier"] for s in pre["shipper"].values()})
+    faults = []
+    if pre["handoff"]["exported"] < n or dec["handoff"]["adopted"] < n:
+        faults.append(f"exported {pre['handoff']}, adopted {dec['handoff']}")
+    if dec["fallback_reprefills"] or dec["timing"]["prefill_tokens"]:
+        faults.append(f"{dec['fallback_reprefills']} fallback re-prefills, "
+                      f"{dec['timing']['prefill_tokens']} tokens prefilled "
+                      "on the decode side")
+    if tiers != [TIER_DEVICE] or any(s.get("degraded") for s in
+                                     pre["shipper"].values()):
+        faults.append(f"tiers {tiers}, shipper {pre['shipper']}")
+    if faults:
+        raise AssertionError("llm_disagg: " + "; ".join(faults))
+    landed = {h["handoff_id"]: h for h in dec["handoffs"]}
+    handoffs = [{**h, **{k: v for k, v in landed.get(h["handoff_id"],
+                                                     {}).items()
+                         if k != "handoff_id"}}
+                for h in pre["handoffs"]]
+    t = dec["timing"]
+    return {"card": smi, "replicas_start_s": start_s, "requests": rows,
+            "prefill_chunk": SERVE_MAX_LEN, "tier": tiers[0],
+            "exported": pre["handoff"]["exported"],
+            "adopted": dec["handoff"]["adopted"],
+            "fallback_reprefills": dec["fallback_reprefills"],
+            "texts_equal_llm_server": True, "handoffs": handoffs,
+            "decode_tokens_per_s": t["decode_tokens"] / t["decode_s"],
+            "k1_k2_k3_k4_launches": {"prefill": pre["kernel_launches"],
+                                     "decode": dec["kernel_launches"]},
+            "shipper": pre["shipper"], "landing": dec["landing"]}
+
+
+def llm_batch_prompts(n=LLM_BATCH_ROWS, seed=5):
+    """``n`` text prompts of 8-40 words from a seed."""
+    import numpy as np
+
+    words = ("the of and to in is was for on that with as by at from his "
+             "card light river stone north cloud paper market engine "
+             "silver garden winter signal harbor").split()
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(words, size=int(rng.integers(8, 41))))
+            for _ in range(n)]
+
+
+def phase_llm_batch(cfg, params, smi):
+    """``build_llm_processor`` over ``from_items`` of ``LLM_BATCH_ROWS``
+    text prompts in blocks of ``LLM_BATCH_SIZE`` (``batch_size`` of the
+    same: a batch never spans blocks), one actor (``concurrency=1``), its
+    engine built in the actor from this process's ``cfg`` and ``params``
+    through ``engine_kwargs`` (no other weights).  The rows must equal,
+    in order, an in-process engine's ``generate`` on the same batches."""
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.batch import build_llm_processor
+
+    prompts = llm_batch_prompts()
+    kw = {k: v for k, v in LLM_ENGINE_KW.items() if k not in ("model", "cfg")}
+    sampling = {"temperature": 0.0, "max_tokens": SERVE_NEW_TOKENS}
+    _zero_launches()
+    t0 = time.perf_counter()
+    rows = build_llm_processor(
+        rd.from_items([{"prompt": p} for p in prompts],
+                      parallelism=LLM_BATCH_ROWS // LLM_BATCH_SIZE),
+        engine_kwargs={"cfg": cfg, "params": params, **kw}, concurrency=1,
+        batch_size=LLM_BATCH_SIZE, sampling=sampling, num_gpus=1).take_all()
+    wall_s = time.perf_counter() - t0
+    launches = list(_all_launches())
+    eng = LLMEngine(cfg, params, **kw)
+    sp = SamplingParams(stop_token_id=eng.tokenizer.eos_id, **sampling)
+    want = [o.text for i in range(0, len(prompts), LLM_BATCH_SIZE)
+            for o in eng.generate(prompts[i:i + LLM_BATCH_SIZE], sp)]
+    got = [r["generated"] for r in rows]
+    if [r["prompt"] for r in rows] != prompts or got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"llm_batch: {len(rows)} rows, rows {bad} "
+                             "differ from the in-process engine's")
+    return {"card": smi, "rows": len(rows), "batch_size": LLM_BATCH_SIZE,
+            "rows_equal_in_process": True, "wall_s": wall_s,
+            "rows_per_s": len(rows) / wall_s,
+            "k1_k2_k3_k4_launches": launches,
+            "first_row": {"prompt": rows[0]["prompt"],
+                          "generated": rows[0]["generated"]},
+            "generated_chars": [len(g) for g in got]}
+
+
 def phase_train(cfg, device="cuda", steps=TRAIN_STEPS, seq=SEQ, warmup=2,
                 make_trainer=None, flops=None):
     """``make_trainer(cfg)`` (default ``make_llama_trainer``) with
@@ -4528,6 +4866,39 @@ def phase_health4():
     return run
 
 
+def serving_front(cfg, params, smi, names=SERVING_PHASES):
+    """The serving front's phases named in ``names`` on ``params``
+    (Llama-2-7B, bf16), each printing its line; ``llm_disagg`` runs
+    ``llm_server`` first.  Returns their reports by name."""
+    import torch
+
+    head = {"model": "llama2_7b", "layers": cfg.num_layers,
+            "depth_cut": False, "slots": SERVE_SLOTS,
+            "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK}
+    out = {}
+    if names & {"llm_server", "llm_disagg"}:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["llm_server"] = phase_llm_server(cfg, params, smi)
+        answers = {k: out["llm_server"].pop(k) for k in ("cold", "warm")}
+        emit({"phase": "llm_server", **head, **out["llm_server"],
+              "phase_s": time.perf_counter() - t0})
+    if "llm_disagg" in names:
+        t0 = time.perf_counter()
+        out["llm_disagg"] = phase_llm_disagg(cfg, answers, smi)
+        emit({"phase": "llm_disagg", **head, **out["llm_disagg"],
+              "phase_s": time.perf_counter() - t0})
+    if "llm_batch" in names:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["llm_batch"] = phase_llm_batch(cfg, params, smi)
+        emit({"phase": "llm_batch", **head, **out["llm_batch"],
+              "phase_s": time.perf_counter() - t0})
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -4539,7 +4910,7 @@ def main(argv) -> int:
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
-    if set(argv) - FOUR_CARD_PHASES - DATA_PHASES:
+    if set(argv) - FOUR_CARD_PHASES - DATA_PHASES - SERVING_PHASES:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     smi = phase_env()
     if argv:
@@ -4582,6 +4953,14 @@ def main(argv) -> int:
                   "batch": 1, "seq": SEQ,
                   "remat_policy": train_cfg.remat_policy,
                   **phase_data_trainer(trainer)})
+        if SERVING_PHASES & set(argv):
+            cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
+                                      param_dtype=torch.bfloat16)
+            params = llama_init(cfg, seed=0, device="cuda")
+            serving_front(cfg, params, smi, SERVING_PHASES & set(argv))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
         if "data_vit" in argv:
             gc.collect()
             torch.cuda.empty_cache()
@@ -4659,6 +5038,9 @@ def main(argv) -> int:
           "depth_cut": False, "max_len": SERVE_MAX_LEN,
           "block_size": SERVE_BLOCK, "slots": SERVE_SLOTS, **disagg,
           "phase_s": time.perf_counter() - t0})
+    # the serving front: replica processes on this card, shut down before
+    # the training phases
+    front = serving_front(cfg, params, smi)
 
     del params
     gc.collect()
@@ -4809,9 +5191,17 @@ def main(argv) -> int:
         return out
 
     def serving(i):
-        """Kernel ``i``'s launches (K1-K4) on the serving mesh paths:
-        none, as on ``serve`` (the engine's attention is plain)."""
-        out = {"serve_mesh": serve_mesh["k1_k2_k3_k4_launches"][i]}
+        """Kernel ``i``'s launches (K1-K4) on the serving mesh paths and
+        the serving front (``llm_server`` and ``llm_disagg``: counted in
+        their replica processes; ``llm_batch`` in this process): none, as
+        on ``serve`` (the engine's attention is plain)."""
+        name = ("K1", "K2", "K3", "K4")[i]
+        disagg_counts = front["llm_disagg"]["k1_k2_k3_k4_launches"]
+        out = {"serve_mesh": serve_mesh["k1_k2_k3_k4_launches"][i],
+               "llm_server": front["llm_server"][
+                   "k1_k2_k3_k4_launches"][name],
+               "llm_disagg": sum(c[name] for c in disagg_counts.values()),
+               "llm_batch": front["llm_batch"]["k1_k2_k3_k4_launches"][i]}
         if serve_mesh4 is not None:
             out["serve_mesh4"] = sum(
                 counts[i] for m in SERVE_MESH4_MESHES for counts in

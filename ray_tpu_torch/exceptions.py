@@ -1,5 +1,5 @@
 """Public exception types of the port (counterpart of
-``ray_tpu/exceptions.py``, the part the train and collective tiers
+``ray_tpu/exceptions.py``, the part the train, collective and serve tiers
 raise)."""
 
 from __future__ import annotations
@@ -45,3 +45,83 @@ class CollectiveAbortError(RayTpuError):
     def __reduce__(self):
         return (type(self), (self.group_name, self.rank, self.seq,
                              self.reason, self.diagnosis))
+
+
+class ActorDiedError(RayTpuError):
+    """The process serving a call is dead or died while executing it
+    (reference: ``ActorDiedError``).  The port has no actors: a serve
+    replica is a process of its own (``serve/replica.py``), and a call
+    pending on one that exits fails with this error, so a router can
+    tell a replica's death from an error its code raised."""
+
+    def __init__(self, actor_id=None, msg: str = ""):
+        self.actor_id = actor_id
+        self.msg = msg
+        super().__init__(msg or f"Actor {actor_id} is dead")
+
+    def __reduce__(self):
+        return (type(self), (self.actor_id, self.msg))
+
+
+class GetTimeoutError(RayTpuError, TimeoutError):
+    """A wait for a call's result exceeded its timeout (reference:
+    ``GetTimeoutError``)."""
+
+
+class TaskCancelledError(RayTpuError):
+    def __init__(self, task_id=None):
+        self.task_id = task_id
+        super().__init__(f"Task {task_id} was cancelled")
+
+    def __reduce__(self):
+        return (type(self), (self.task_id,))
+
+
+class BackPressureError(RayTpuError):
+    """A serve deployment shed this request at admission: every replica is
+    at ``max_ongoing_requests`` and the router's wait queue already holds
+    ``max_queued_requests`` requests.
+
+    Fail-fast by design: the request never reaches a replica, so the
+    caller may retry after ``retry_after_s`` (the HTTP proxy answers 503
+    with ``Retry-After``).  The router never retries it itself.
+    """
+
+    def __init__(self, deployment: str = "", queued: int = 0,
+                 limit: int = 0, retry_after_s: float = 1.0):
+        self.deployment = deployment
+        self.queued = queued
+        self.limit = limit
+        self.retry_after_s = retry_after_s
+        super().__init__(
+            f"deployment {deployment!r} is overloaded: {queued} request(s) "
+            f"already queued (max_queued_requests={limit}); retry after "
+            f"~{retry_after_s:.1f}s")
+
+    def __reduce__(self):
+        return (type(self), (self.deployment, self.queued, self.limit,
+                             self.retry_after_s))
+
+
+class DeadlineExceededError(RayTpuError, TimeoutError):
+    """A serve request's end-to-end budget was spent before the work could
+    (or did) complete, so the request was rejected or abandoned at
+    ``stage`` rather than executed for a client that stopped waiting.
+    Every hop (router, replica, engine host) checks the remaining budget.
+    """
+
+    def __init__(self, request_id: str = "", deployment: str = "",
+                 stage: str = "", overrun_s: float = 0.0):
+        self.request_id = request_id
+        self.deployment = deployment
+        self.stage = stage
+        self.overrun_s = overrun_s
+        where = f" at {stage}" if stage else ""
+        super().__init__(
+            f"request {request_id or '<unknown>'} for deployment "
+            f"{deployment!r} exceeded its deadline{where} "
+            f"(over by {overrun_s:.2f}s)")
+
+    def __reduce__(self):
+        return (type(self), (self.request_id, self.deployment, self.stage,
+                             self.overrun_s))

@@ -252,7 +252,9 @@ class EdgeTransport:
         self.device = None if device is None else torch.device(device)
         self.stats = {"sends": 0, "recvs": 0, "bytes_sent": 0,
                       "write_wait_s": 0.0, "read_wait_s": 0.0,
-                      "device_frames": 0, "degraded": 0}
+                      "device_frames": 0, "degraded": 0,
+                      # the last read's decode (its landing), waits aside
+                      "last_land_s": 0.0}
 
     @property
     def name(self) -> str:
@@ -295,11 +297,13 @@ class EdgeTransport:
         t0 = time.perf_counter()
         try:
             view, version = self.channel.read_acquire(timeout)
+            t_land = time.perf_counter()
             try:
                 value = self._decode(view)
             finally:
                 self.channel.read_release(version)
             self.stats["recvs"] += 1
+            self.stats["last_land_s"] = time.perf_counter() - t_land
             return value
         finally:
             self.stats["read_wait_s"] += time.perf_counter() - t0

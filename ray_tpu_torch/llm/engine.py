@@ -372,6 +372,9 @@ class LLMEngine:
         # own: its chunk's device time lands in that step's decode)
         self.timing = {"prefill_s": 0.0, "prefill_tokens": 0,
                        "decode_s": 0.0, "decode_tokens": 0}
+        # per-token hook for streaming consumers: on_token(request_id, tok),
+        # called on the thread that steps the engine
+        self.on_token: Optional[Any] = None
 
     def _shard_over_mesh(self, mesh) -> None:
         """Tensor- and pipeline-parallel serving: the params placed by
@@ -487,6 +490,12 @@ class LLMEngine:
                 req.prefill_only = False  # abandoned: nothing to export
                 return True
         return False
+
+    def free_slot_count(self) -> int:
+        return sum(1 for s in self._slots if s is None)
+
+    def queued_count(self) -> int:
+        return len(self._queue)
 
     def has_unfinished(self) -> bool:
         return (bool(self._queue) or bool(self._failed)
@@ -1256,6 +1265,11 @@ class LLMEngine:
             # decode engine generates everything after it
             req.done = True
             return
+        if self.on_token is not None:
+            try:
+                self.on_token(req.request_id, tok)
+            except Exception:  # noqa: BLE001 — a consumer hook must not kill decode
+                pass
         if (req.num_generated >= sp.max_tokens
                 or len(req.prompt_tokens) + len(req.out_tokens)
                 >= self.max_len - 1):

@@ -226,6 +226,9 @@ class KVLandingStrip:
                 with self._lock:
                     self._stats["decode_errors"] += 1
                 continue
+            if isinstance(handoff, dict):
+                # this frame's landing time, for the adopter's records
+                handoff["land_s"] = transport.stats["last_land_s"]
             try:
                 ok = self._adopt(handoff)
             except Exception:  # noqa: BLE001 — adopt must not kill the loop

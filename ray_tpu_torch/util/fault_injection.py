@@ -46,6 +46,15 @@ site                        guards
 ``health.probe``            each iteration of the health probe's timed
                             matmul loop, and the monitor's dispatch of a
                             probe (``_private/health_plane.py``)
+``llm.handoff``             the decode server's wait for a landed KV
+                            hand-off, before it falls back to a local
+                            re-prefill (``llm/serving.py``)
+``serve.replica.call``      a replica's admission of each call, before
+                            the user callable runs (``serve/replica.py``)
+``serve.router.assign``     each dispatch attempt of the router
+                            (``serve/router.py``)
+``serve.proxy.admit``       the HTTP proxy's mint of each request's
+                            context (``serve/proxy.py``)
 ==========================  =================================================
 
 A spec armed on a card or slot (``_private/node_faults.py``) reaches

@@ -721,3 +721,44 @@ def test_to_tensors_on_card():
     want = np.concatenate([b["images"] for b in blocks])
     assert torch.equal(out["images"].cpu(), torch.from_numpy(want))
     assert out["labels"].is_cuda
+
+
+@pytest.mark.gpu
+def test_llm_replica_on_card_matches_cpu_engine():
+    """A tiny-config LLMServer replica process on ``cuda:0`` (its weights
+    the CPU engine's, sent to it on the card) answers the texts the tiny
+    engine gives on the CPU, request by request (fp32, greedy)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.serving import build_llm_deployment
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    def tree_to(tree, device):
+        if isinstance(tree, dict):
+            return {k: tree_to(v, device) for k, v in tree.items()}
+        return tree.to(device)
+
+    cfg = LlamaConfig.tiny()
+    params = llama_init(cfg, 0, "cpu")
+    kw = {"batch_slots": 4, "max_len": 128}
+    prompts = ["the quick brown fox", "hello", "a b c d e f g h"]
+    eng = LLMEngine(cfg, params, device="cpu", **kw)
+    sp = SamplingParams(temperature=0.0, max_tokens=8,
+                        stop_token_id=eng.tokenizer.eos_id)
+    want = [eng.generate([p], sp)[0] for p in prompts]
+    try:
+        handle = serve.run(build_llm_deployment(
+            {"cfg": cfg, "params": tree_to(params, "cuda:0"), **kw}),
+            name="gpu", route_prefix="/gpu")
+        got = [handle.remote({"prompt": p, "max_tokens": 8,
+                              "temperature": 0.0}).result(timeout=120)
+               for p in prompts]
+        stats = handle.stats.remote().result(timeout=30)
+    finally:
+        serve.shutdown()
+    assert [g["generated_text"] for g in got] == [w.text for w in want]
+    assert [g["num_generated_tokens"] for g in got] == \
+        [len(w.token_ids) for w in want]
+    assert stats["engine_steps"] > 0 and stats["timing"]["decode_tokens"] > 0

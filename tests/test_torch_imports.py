@@ -1,6 +1,7 @@
 """The port stands alone: ``ray_tpu_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of ``ray_tpu``, nor ``pyarrow`` or
-``pandas`` (the card's machine has neither), and the port lints clean."""
+neither ``jax`` nor anything of ``ray_tpu``, nor ``pyarrow``, ``pandas``
+or ``aiohttp`` (the card's machine has none of them), and the port lints
+clean."""
 
 import ast
 import os
@@ -25,7 +26,7 @@ def _port_sources():
 def _forbidden(name):
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "flax", "optax", "orbax", "pyarrow",
-                   "pandas") or top == "ray_tpu"
+                   "pandas", "aiohttp") or top == "ray_tpu"
 
 
 def test_port_sources_exist():
@@ -47,6 +48,18 @@ def test_no_jax_or_reference_imports(path):
             if _forbidden(node.module or ""):
                 bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_serving_front_sources_are_covered():
+    """The serving front's modules are among the sources checked for
+    jax, ``ray_tpu`` and aiohttp imports (the card's machine has no
+    aiohttp: the proxy is the standard library's)."""
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    want = {f"ray_tpu_torch/serve/{m}.py" for m in (
+        "__init__", "_wire", "context", "controller", "deployment", "proxy",
+        "replica", "router")}
+    want |= {"ray_tpu_torch/llm/serving.py", "ray_tpu_torch/llm/batch.py"}
+    assert want <= rel, sorted(want - rel)
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -87,9 +100,14 @@ def test_import_leaves_jax_and_reference_unloaded():
         "ray_tpu_torch.data.operators, "
         "ray_tpu_torch.data.streaming_executor, "
         "ray_tpu_torch.data.datasource, ray_tpu_torch.data.iterator, "
-        "ray_tpu_torch.data.dataset\n"
+        "ray_tpu_torch.data.dataset, ray_tpu_torch.serve, "
+        "ray_tpu_torch.serve.context, ray_tpu_torch.serve.deployment, "
+        "ray_tpu_torch.serve._wire, ray_tpu_torch.serve.replica, "
+        "ray_tpu_torch.serve.controller, ray_tpu_torch.serve.router, "
+        "ray_tpu_torch.serve.proxy, ray_tpu_torch.llm.serving, "
+        "ray_tpu_torch.llm.batch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas'))\n"
+        "('jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas', 'aiohttp'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
