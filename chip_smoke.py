@@ -14,7 +14,8 @@ card the data-plane phases run alone the same way: ``data_trainer``
 runs ``train``, ``trainer`` and ``data_trainer``, ``data_vit`` runs
 ``vit_train`` and ``data_vit``; so do the serving front's:
 ``llm_server``, ``llm_disagg`` (after ``llm_server``) and
-``llm_batch``.)
+``llm_batch``; and the RL stack's: ``rl_ppo``, ``rl_runners``,
+``rl_multi_agent`` and ``rl_families``.)
 
 Phases, each printing one JSON line:
 
@@ -244,11 +245,33 @@ Phases, each printing one JSON line:
    the H2D copies' device ms per batch (from the profiled step's
    trace), the page-locked bytes and peak memory.  Then
    ``health`` and, with four cards, ``health4``.
+15. The RL stack (``ray_tpu_torch.rl``, no kernel of K1-K4 on its
+   paths; ``python3 chip_smoke.py rl_ppo rl_runners rl_multi_agent
+   rl_families`` runs them alone).  ``rl_ppo``: the vectorized mode of
+   ``benchmarks/rl_ppo_bench.py``, PPO on CartPole-v1 as tensors on the
+   card (1024 envs x 128 steps, hidden (64, 64), lr 3e-4, 2 epochs x 4
+   minibatches, 20 iterations); it must learn as the reference's test
+   holds it (late > 1.5 x early, late > 40), and one update and one GAE
+   on the card must match the CPU's from the same inputs.  It prints env
+   steps/s, ms per iteration, the rollout and the update apart, one
+   profiled iteration's busy ms and idle share, and the reward curve.
+   ``rl_runners``: the bench's distributed mode, 4 runner processes x 32
+   envs x 128 steps on the host, the learner on the card (gymnasium's
+   CartPole where gymnasium imports, else ``HostCartPole``, registered
+   in the driver and carried to the runners); one runner's process is
+   killed between iterations, and the next must finish with it
+   respawned.  ``rl_multi_agent``: PursuitTag, 512 envs x 128 steps,
+   independent learners that must start equal and diverge.
+   ``rl_families``: DQN, SAC, IMPALA, APPO, CQL, BC, MARWIL and
+   DreamerV3 at their reference defaults, three iterations each, losses
+   finite, one update against the CPU (Dreamer: the world-model loss and
+   update with the same latent noise).
 
 Then the ``kernels`` line (every ported kernel with its launches on its
 main path: K1, K2 and K3 in ``train``, K4 in ``ring``; the launches of
 every path that runs it, the trainer paths' counted in their workers,
-0 on the serving paths, and K1-K3 at
+0 on the serving and the RL paths (the RL paths' by the profiler),
+and K1-K3 at
 Mixtral's attention shape), the
 ``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the traceback is
@@ -268,6 +291,12 @@ import re
 import subprocess
 import sys
 import time
+
+try:  # the runner path's host env derives from the port's gym adapter
+    from ray_tpu_torch.rl.env import EnvSpec as _EnvSpec
+    from ray_tpu_torch.rl.env import GymVectorEnv as _GymVectorEnv
+except ImportError:  # chip_smoke.py without the package: main() refuses
+    _EnvSpec, _GymVectorEnv = None, object
 
 SEQ = 2048          # forward phase sequence length (b = 1)
 SERVE_SLOTS = 4
@@ -339,6 +368,27 @@ SERVING_PHASES = {"llm_server", "llm_disagg", "llm_batch"}
 LLM_ENGINE_KW = {"model": "llama2_7b", "batch_slots": SERVE_SLOTS,
                  "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK}
 LLM_BATCH_ROWS, LLM_BATCH_SIZE = 12, 4
+# the RL phases a run may name alone too (``python3 chip_smoke.py rl_ppo
+# rl_runners rl_multi_agent rl_families``): rl_ppo is the vectorized mode
+# of benchmarks/rl_ppo_bench.py (CartPole-v1 envs x fragment, iterations),
+# rl_runners its distributed mode (runner processes x envs each,
+# iterations), rl_multi_agent its run_multi_agent (envs, iterations), and
+# rl_families each other family at its reference defaults for a few
+# iterations.  Tolerances of the CPU-against-card checks, stated before
+# the first reading: the parameters after an update (PPO's eight
+# minibatch steps, one step elsewhere) within 1e-4 (a tenth of one Adam
+# step at lr 1e-3; fp32 products on the card, not TF32, sum in another
+# order), GAE within 1e-5 (a fp32 reverse sum over 128 steps), Dreamer's
+# world-model loss within rtol 1e-5
+RL_PHASES = {"rl_ppo", "rl_runners", "rl_multi_agent", "rl_families"}
+RL_PPO_ENVS, RL_FRAGMENT, RL_PPO_ITERS = 1024, 128, 20
+RL_RUNNERS, RL_RUNNER_ENVS, RL_RUNNER_ITERS = 4, 32, 5
+RL_MA_ENVS, RL_MA_ITERS = 512, 20
+RL_FAMILY_ITERS = 3
+RL_PARAMS_ATOL, RL_GAE_ATOL, RL_DREAMER_LOSS_RTOL = 1e-4, 1e-5, 1e-5
+# the profiler's kernel names of K1-K4 (by fragment)
+RL_PROFILER_NAMES = {"K1": "flash_fwd", "K2": "flash_bwd_dq",
+                     "K3": "flash_bwd_dkv", "K4": "remote_"}
 # vit_train: ViT-B/16 at its published width, images per step and timed
 # steps
 VIT_BATCH = 256
@@ -2616,7 +2666,7 @@ def union_ms(events):
     return total / 1e3
 
 
-def device_profile(fn, start=None, copies=False):
+def device_profile(fn, start=None, copies=False, counts=False):
     """One call of ``fn`` under ``device_events``: device ms by kernel
     name, and its busy time split by stream use: ``device_busy_ms`` (the
     union of every kernel's interval), ``nccl_ms`` (of NCCL's kernels),
@@ -2627,8 +2677,9 @@ def device_profile(fn, start=None, copies=False):
     the time it waits for a peer still starting its profiler.  With
     ``copies``, also ``h2d_copies`` and ``h2d_copy_ms``: the copies from
     page-locked host memory to the card that ran in the window, from any
-    thread of the process, and their device ms.  ``({}, {})`` when the
-    profiler recorded no device activity."""
+    thread of the process, and their device ms.  With ``counts``, also
+    ``launches_by_name``: each kernel name's launches in the window.
+    ``({}, {})`` when the profiler recorded no device activity."""
     import torch
 
     wall = []
@@ -2652,6 +2703,11 @@ def device_profile(fn, start=None, copies=False):
     split = {"device_busy_ms": busy, "nccl_ms": nccl_ms,
              "compute_ms": comp_ms, "overlap_ms": nccl_ms + comp_ms - busy,
              "call_ms": wall[0]}
+    if counts:
+        split["launches_by_name"] = {}
+        for e in events:
+            split["launches_by_name"][e.name] = \
+                split["launches_by_name"].get(e.name, 0) + 1
     if copies:
         h2d = [e for e in events if "HtoD" in e.name and "Pinned" in e.name]
         split.update(h2d_copies=len(h2d), h2d_copy_ms=sum(
@@ -4899,6 +4955,633 @@ def serving_front(cfg, params, smi, names=SERVING_PHASES):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the RL stack (``ray_tpu_torch.rl``): no kernel of K1-K4 on its paths; the
+# rollouts and every learner update run as torch ops on the card
+# ---------------------------------------------------------------------------
+
+def rl_timed(fn):
+    """``(fn(), wall ms)`` with the card synchronized on both sides."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def rl_profile(fn):
+    """One call of ``fn`` under ``device_profile``: its wall ms, the
+    card's busy ms (the union of kernel intervals) and idle share, the
+    kernel count, the three longest kernels by name, and the launches of
+    K1-K4 found by kernel name; "not measured" when there is no card (a
+    rehearsal on the CPU)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fn()
+        return {"device_busy_ms": "not measured",
+                "idle_share": "not measured",
+                "k1_k4_launches_by_profiler": dict.fromkeys(
+                    RL_PROFILER_NAMES, 0)}
+    by_name, split = device_profile(fn, counts=True)
+    if not split:
+        raise AssertionError("the profiler recorded no device activity")
+    launches = split["launches_by_name"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {"call_ms": split["call_ms"],
+            "device_busy_ms": split["device_busy_ms"],
+            "idle_share": 1 - split["device_busy_ms"] / split["call_ms"],
+            "kernels": sum(launches.values()),
+            "top_kernels_ms": [[n[:60], ms] for n, ms in top],
+            "k1_k4_launches_by_profiler": {
+                k: sum(n_ for n, n_ in launches.items() if frag in n)
+                for k, frag in RL_PROFILER_NAMES.items()}}
+
+
+def rl_no_port_kernels(name, counted, profiled):
+    """The RL paths run none of K1-K4: the wrappers' counts over the
+    phase and the profiler's over its profiled call must both be 0."""
+    if any(counted) or any(profiled["k1_k4_launches_by_profiler"].values()):
+        raise AssertionError(f"{name}: K1-K4 launched on an RL path: "
+                             f"{counted}, {profiled}")
+
+
+def rl_max_err(a, b):
+    """The largest |a - b| over two trees of tensors or arrays."""
+    import numpy as np
+
+    from ray_tpu_torch.rl.models import to_host, tree_leaves
+
+    return max(float(np.max(np.abs(x - y)))
+               for x, y in zip(tree_leaves(to_host(a)),
+                               tree_leaves(to_host(b))))
+
+
+def rl_ppo_check_inputs(algo):
+    """The PPO check's inputs from ``algo`` (vectorized): a fresh
+    fragment's batch, the two permutations its update would draw, and a
+    GAE input of the fragment's shape: CartPole's reward 1, the batch's
+    values (returns - advantages), dones drawn at 2% and the last row's
+    values as the bootstrap."""
+    import torch
+
+    frag = algo.config.rollout_fragment_length
+    _, _, batch, _ = algo._rollout(algo.learner.params, algo.env_state,
+                                   algo.obs, algo.gen)
+    n = batch["obs"].shape[0]
+    perms = [torch.randperm(n, generator=algo.gen, device=algo.gen.device)
+             for _ in range(algo.config.ppo.num_epochs)]
+    values = (batch["returns"] - batch["advantages"]).reshape(frag, -1)
+    dones = torch.rand(values.shape, generator=algo.gen,
+                       device=algo.gen.device) < 0.02
+    return batch, perms, (torch.ones_like(values), values, dones,
+                          values[-1])
+
+
+def rl_small_ppo_check(device="cuda"):
+    """``rl_ppo``'s check at a small size: 64 envs x 16 steps, two
+    iterations, then one update and GAE against the CPU."""
+    from ray_tpu_torch.rl import PPO, AlgorithmConfig
+
+    algo = (AlgorithmConfig(PPO, device=device).environment("CartPole-v1")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=64,
+                         rollout_fragment_length=16)
+            .training(num_epochs=2, num_minibatches=4).build())
+    for _ in range(2):
+        algo.train()
+    return rl_ppo_vs_cpu(algo.learner, *rl_ppo_check_inputs(algo))
+
+
+def rl_ppo_vs_cpu(learner, batch, perms, traj):
+    """One ``PPOLearner._update_with_perms`` and one ``compute_gae`` on
+    ``learner``'s device and on the CPU from the same parameters,
+    optimizer state, batch and permutations (the trajectory ``traj``:
+    rewards, values, dones, last_value): the largest differences, held to
+    ``RL_PARAMS_ATOL`` and ``RL_GAE_ATOL``."""
+    from ray_tpu_torch.rl import PPOLearner, compute_gae
+    from ray_tpu_torch.rl.models import to_host
+
+    cpu = PPOLearner(learner.module, learner.config, device="cpu")
+    cpu.set_state(learner.get_state())
+    host_batch = to_host(batch)
+    host_perms = [p.cpu() for p in perms]
+    learner._update_with_perms(batch, perms)
+    cpu._update_with_perms(host_batch, host_perms)
+    params_err = rl_max_err(learner.params, cpu.params)
+    dev = compute_gae(*traj, 0.99, 0.95)
+    host = compute_gae(*(t.cpu() for t in traj), 0.99, 0.95)
+    gae_err = max(rl_max_err(d, h) for d, h in zip(dev, host))
+    if not (params_err <= RL_PARAMS_ATOL and gae_err <= RL_GAE_ATOL):
+        raise AssertionError(
+            f"PPO on {learner.device} against the CPU: params off by "
+            f"{params_err} (atol {RL_PARAMS_ATOL}), GAE by {gae_err} "
+            f"(atol {RL_GAE_ATOL})")
+    return {"update_params_max_abs_err": params_err,
+            "gae_max_abs_err": gae_err, "params_atol": RL_PARAMS_ATOL,
+            "gae_atol": RL_GAE_ATOL}
+
+
+def rl_family_vs_cpu(name, obj, make_cpu, update):
+    """One update of family ``name`` on ``obj``'s device and on a CPU twin
+    (``make_cpu()`` loaded with ``obj``'s checkpoint), ``update(o)``
+    running it on either from the same inputs; the trained and target
+    trees after it are held to ``RL_PARAMS_ATOL``."""
+    from ray_tpu_torch.rl.convert import TARGETS, TRAINED
+
+    cpu = make_cpu()
+    cpu.load_checkpoint(obj.save_checkpoint())
+    update(obj)
+    update(cpu)
+    # IMPALA/APPO hold their trees in their learner
+    held, twin = getattr(obj, "learner", obj), getattr(cpu, "learner", cpu)
+    kind = next(c.__name__ for c in type(held).__mro__
+                if c.__name__ in TRAINED)
+    trees = TRAINED[kind] + TARGETS.get(kind, ())
+    err = max(rl_max_err(getattr(held, t), getattr(twin, t))
+              for t in trees)
+    if not err <= RL_PARAMS_ATOL:
+        raise AssertionError(f"{name} on {obj.device} against the CPU: "
+                             f"{trees} off by {err} (atol {RL_PARAMS_ATOL})")
+    return {"update_params_max_abs_err": err}
+
+
+def rl_dreamer_vs_cpu(obj, make_cpu, seed=0):
+    """The world-model loss of ``obj`` (a DreamerV3) on its device and on
+    a CPU twin from one replay batch with the same latent noise, then one
+    world-model update on both, held to ``RL_DREAMER_LOSS_RTOL`` and
+    ``RL_PARAMS_ATOL``."""
+    import torch
+
+    from ray_tpu_torch.rl import dreamer as dm
+    from ray_tpu_torch.rl.models import as_tensors, gumbel, to_host
+
+    p = obj.p
+    cpu = make_cpu()
+    cpu.load_checkpoint(obj.save_checkpoint())
+    batch = to_host(obj._sample_batch())
+    gen = torch.Generator().manual_seed(seed)
+    noise = gumbel((p.batch_length, p.batch_size, p.codes, p.classes),
+                      gen)
+    losses = []
+    for o in (obj, cpu):
+        total, _ = dm.wm_loss(o.wm, as_tensors(batch, o.device), p,
+                              o.n_actions, noise=noise.to(o.device))
+        losses.append(float(total.detach()))
+        o._wm_update(as_tensors(batch, o.device), noise.to(o.device))
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    err = rl_max_err(obj.wm, cpu.wm)
+    if not (rel <= RL_DREAMER_LOSS_RTOL and err <= RL_PARAMS_ATOL):
+        raise AssertionError(
+            f"DreamerV3 on {obj.device} against the CPU: world-model loss "
+            f"{losses} (rtol {RL_DREAMER_LOSS_RTOL}), params off by {err}")
+    return {"wm_loss": losses[0], "wm_loss_cpu": losses[1],
+            "wm_loss_rel_err": rel, "update_params_max_abs_err": err}
+
+
+class HostCartPole(_GymVectorEnv):
+    """CartPole-v1 stepped in numpy on the host: a ``GymVectorEnv`` for
+    the runner processes where gymnasium is absent (the card's machine
+    has none).  gymnasium's physics (Euler steps in fp64, fp32
+    observations, reward 1 per step, the 500-step limit) and the
+    ``SAME_STEP`` autoreset contract of ``GymVectorEnv.step``: the step
+    that ends an episode returns the reset observation and the final one
+    apart."""
+
+    def __init__(self, name="HostCartPole-v1"):
+        import numpy as np
+
+        self.name = name
+        self.spec = _EnvSpec(obs_dim=4, num_actions=2, max_episode_steps=500)
+        self.theta_threshold = 12 * 2 * np.pi / 360
+
+    def make_batch(self, num_envs, seed=0):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed)
+        self.state = self.rng.uniform(-0.05, 0.05, (num_envs, 4))
+        self.steps = np.zeros(num_envs, np.int64)
+        return self.state.astype(np.float32)
+
+    def step(self, actions):
+        import numpy as np
+
+        x, x_dot, theta, theta_dot = self.state.T
+        force = np.where(actions == 1, 10.0, -10.0)
+        cos, sin = np.cos(theta), np.sin(theta)
+        temp = (force + 0.05 * theta_dot ** 2 * sin) / 1.1
+        thetaacc = (9.8 * sin - cos * temp) / (
+            0.5 * (4.0 / 3.0 - 0.1 * cos ** 2 / 1.1))
+        xacc = temp - 0.05 * thetaacc * cos / 1.1
+        x, x_dot = x + 0.02 * x_dot, x_dot + 0.02 * xacc
+        theta, theta_dot = theta + 0.02 * theta_dot, theta_dot + 0.02 * thetaacc
+        final = np.stack([x, x_dot, theta, theta_dot], 1)
+        self.steps += 1
+        term = (np.abs(x) > 2.4) | (np.abs(theta) > self.theta_threshold)
+        trunc = (self.steps >= self.spec.max_episode_steps) & ~term
+        done = term | trunc
+        fresh = self.rng.uniform(-0.05, 0.05, final.shape)
+        self.state = np.where(done[:, None], fresh, final)
+        self.steps[done] = 0
+        return (self.state.astype(np.float32),
+                np.ones(len(actions), np.float32), term, trunc,
+                final.astype(np.float32))
+
+
+def rl_runner_env():
+    """The env the runner processes step: gymnasium's CartPole-v1 where
+    gymnasium imports, else ``HostCartPole`` registered as
+    ``HostCartPole-v1`` (the runners get the factory from the group)."""
+    from ray_tpu_torch.rl import register_env
+
+    try:
+        import gymnasium  # noqa: F401
+        return "CartPole-v1", "gymnasium CartPole-v1"
+    except ImportError:
+        register_env("HostCartPole-v1", HostCartPole)
+        return "HostCartPole-v1", ("chip_smoke.HostCartPole (numpy, "
+                                   "gymnasium absent)")
+
+
+def rl_learning(rewards):
+    """The reference's learning check (``tests/test_rl.py:89-92``): late
+    (the last three) > 1.5 x early (the first two) and late > 40."""
+    import numpy as np
+
+    early, late = float(np.mean(rewards[:2])), float(np.mean(rewards[-3:]))
+    return early, late, bool(late > 1.5 * early and late > 40)
+
+
+def phase_rl_ppo(device="cuda", num_envs=RL_PPO_ENVS, frag=RL_FRAGMENT,
+                 iters=RL_PPO_ITERS):
+    """The vectorized mode of ``benchmarks/rl_ppo_bench.py`` through
+    ``AlgorithmConfig(PPO)``: CartPole-v1 on the card, ``num_envs`` x
+    ``frag`` steps per iteration, hidden (64, 64), lr 3e-4, 2 epochs x 4
+    minibatches.  Every iteration's wall and episode reward; then one
+    iteration's rollout and update apart, one iteration profiled, and
+    one update and GAE against the CPU."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl import PPO, AlgorithmConfig
+
+    algo = (AlgorithmConfig(PPO, device=device).environment("CartPole-v1")
+            .env_runners(num_env_runners=0,
+                         num_envs_per_env_runner=num_envs,
+                         rollout_fragment_length=frag)
+            .training(lr=3e-4, num_epochs=2, num_minibatches=4).seed_(0)
+            .build())
+    _zero_launches()
+    rewards, iter_ms, steps = [], [], 0
+    for _ in range(iters):
+        m, ms = rl_timed(algo.train)
+        rewards.append(m["episode_reward_mean"])
+        iter_ms.append(ms)
+        steps = m["env_steps_this_iter"]
+    counted = list(_all_launches())
+    early, late, learned = rl_learning(rewards)
+    split = {"rollout_ms": [], "update_ms": []}
+    for _ in range(3):
+        out, ms = rl_timed(lambda: algo._rollout(
+            algo.learner.params, algo.env_state, algo.obs, algo.gen))
+        algo.env_state, algo.obs, batch, _ = out
+        split["rollout_ms"].append(ms)
+        _, ms = rl_timed(lambda: algo.learner.update(batch, algo.gen))
+        split["update_ms"].append(ms)
+    profiled = rl_profile(algo.train)
+    vs_cpu = rl_ppo_vs_cpu(algo.learner, *rl_ppo_check_inputs(algo))
+    timed = iter_ms[1:]
+    out = {"env": "CartPole-v1 (torch, on the card)", "num_envs": num_envs,
+           "fragment": frag, "iterations": iters, "hidden": [64, 64],
+           "lr": 3e-4, "epochs": 2, "minibatches": 4,
+           "env_steps_per_iter": steps,
+           "env_steps_per_s": steps * len(timed) / (sum(timed) / 1e3),
+           "ms_per_iter": float(np.median(timed)),
+           "first_iter_ms": iter_ms[0],
+           "rollout_ms": float(np.median(split["rollout_ms"])),
+           "update_ms": float(np.median(split["update_ms"])),
+           "profiled_iter": profiled, "reward_curve": rewards,
+           "early": early, "late": late, "learned": learned,
+           "k1_k4_launches": counted, "vs_cpu": vs_cpu,
+           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32}
+    rl_no_port_kernels("rl_ppo", counted, profiled)
+    if not learned:
+        raise AssertionError(f"rl_ppo did not learn: early {early}, late "
+                             f"{late} (late > 1.5 x early and > 40): "
+                             f"{rewards}")
+    return out
+
+
+def phase_rl_runners(device="cuda", runners=RL_RUNNERS,
+                     num_envs=RL_RUNNER_ENVS, frag=RL_FRAGMENT,
+                     iters=RL_RUNNER_ITERS):
+    """The distributed mode of the same bench: ``runners`` EnvRunner
+    processes x ``num_envs`` envs x ``frag`` steps on the host, the
+    learner on ``device``.  Between two iterations one runner's process
+    is killed: the next iteration must finish with the group at full
+    strength and ``respawns_left`` down by one."""
+    import signal
+
+    import numpy as np
+
+    from ray_tpu_torch.rl import PPO, AlgorithmConfig
+
+    env_name, env_desc = rl_runner_env()
+    t0 = time.perf_counter()
+    algo = (AlgorithmConfig(PPO, device=device).environment(env_name)
+            .env_runners(num_env_runners=runners,
+                         num_envs_per_env_runner=num_envs,
+                         rollout_fragment_length=frag)
+            .training(lr=3e-4, num_epochs=2, num_minibatches=4).seed_(0)
+            .build())
+    start_s = time.perf_counter() - t0
+    group = algo.runner_group
+    try:
+        ran = group.env_names()
+        _zero_launches()
+        iter_ms, steps = [], 0
+        for _ in range(iters):
+            m, ms = rl_timed(algo.train)
+            iter_ms.append(ms)
+            steps = m["env_steps_this_iter"]
+        samples, sample_ms = rl_timed(lambda: group.sample(frag))
+        _, sync_ms = rl_timed(
+            lambda: group.sync_weights(algo.learner.get_weights()))
+        profiled = rl_profile(algo.train)
+        counted = list(_all_launches())
+        before, victim = group.respawns_left, group.pids()[0]
+        os.kill(victim, signal.SIGKILL)
+        m, kill_iter_ms = rl_timed(algo.train)
+        after = group.respawns_left
+        respawned = (after == before - 1 and victim not in group.pids()
+                     and len(group.runners) == runners
+                     and bool(np.isfinite(m["pi_loss"])))
+        m2, _ = rl_timed(algo.train)
+        out = {"env": env_desc, "runner_envs": sorted(set(ran)),
+               "runners": runners, "envs_per_runner": num_envs,
+               "fragment": frag, "learner_device": device,
+               "runner_start_s": start_s,
+               "env_steps_per_iter": steps,
+               "env_steps_per_s": steps * len(iter_ms[1:])
+               / (sum(iter_ms[1:]) / 1e3),
+               "ms_per_iter": float(np.median(iter_ms[1:])),
+               "sample_ms": sample_ms, "sample_fragments": len(samples),
+               "sync_weights_ms": sync_ms, "profiled_iter": profiled,
+               "k1_k4_launches": counted,
+               "killed_pid": victim, "kill_iter_ms": kill_iter_ms,
+               "kill_iter_env_steps": m["env_steps_this_iter"],
+               "after_kill_env_steps": m2["env_steps_this_iter"],
+               "respawns_left": [before, after], "respawned": respawned,
+               "dropped": group.dropped_runners}
+    finally:
+        algo.stop()
+    rl_no_port_kernels("rl_runners", counted, profiled)
+    if not (respawned and out["after_kill_env_steps"]
+            == runners * num_envs * frag):
+        raise AssertionError(f"rl_runners: the killed runner was not "
+                             f"respawned: {out}")
+    return out
+
+
+def phase_rl_multi_agent(device="cuda", num_envs=RL_MA_ENVS,
+                         frag=RL_FRAGMENT, iters=RL_MA_ITERS):
+    """``benchmarks/rl_ppo_bench.py``'s ``run_multi_agent``: PursuitTag
+    (two agents, zero-sum) with independent PPO learners on ``device``,
+    2 epochs x 4 minibatches; the reference's checks: the learners start
+    equal and diverge, and the agents' rewards are opposite."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl import MultiAgentPPO, PPOConfig, PursuitTagEnv
+    from ray_tpu_torch.rl.models import tree_leaves
+
+    ma = MultiAgentPPO(PursuitTagEnv(), num_envs=num_envs, rollout_len=frag,
+                       config=PPOConfig(num_epochs=2, num_minibatches=4),
+                       device=device)
+    same_init = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ma.learners["pursuer"].params),
+        tree_leaves(ma.learners["evader"].params)))
+    _zero_launches()
+    iter_ms, env_steps, agent_steps, rewards = [], 0, 0, []
+    for _ in range(iters):
+        m, ms = rl_timed(ma.train)
+        iter_ms.append(ms)
+        env_steps, agent_steps = (m["env_steps_this_iter"],
+                                  m["agent_steps_this_iter"])
+        rewards.append([m["agent/pursuer/reward_per_step"],
+                        m["agent/evader/reward_per_step"]])
+    profiled = rl_profile(ma.train)
+    counted = list(_all_launches())
+    diverged = any(not torch.allclose(a, b) for a, b in zip(
+        tree_leaves(ma.learners["pursuer"].params),
+        tree_leaves(ma.learners["evader"].params)))
+    zero_sum = all(abs(p + e) <= 1e-5 * max(1.0, abs(p))
+                   for p, e in rewards)
+    timed = iter_ms[1:]
+    out = {"env": "PursuitTag (2-agent zero-sum, torch, on the card)",
+           "agents": 2, "policies": len(ma.policy_ids),
+           "num_envs": num_envs, "fragment": frag, "iterations": iters,
+           "env_steps_per_s": env_steps * len(timed) / (sum(timed) / 1e3),
+           "agent_steps_per_s": agent_steps * len(timed)
+           / (sum(timed) / 1e3),
+           "ms_per_iter": float(np.median(timed)),
+           "first_iter_ms": iter_ms[0], "profiled_iter": profiled,
+           "pursuer_reward_curve": [r[0] for r in rewards],
+           "same_init": same_init, "diverged": diverged,
+           "zero_sum": zero_sum, "k1_k4_launches": counted}
+    rl_no_port_kernels("rl_multi_agent", counted, profiled)
+    if not (same_init and diverged and zero_sum):
+        raise AssertionError(f"rl_multi_agent: {out}")
+    return out
+
+
+def rl_offline_data(n=2048, seed=0):
+    """The reference tests' offline data: obs from a seed, the good
+    action ``obs[:, 0] > 0`` taken 90% of the time, reward 1 for it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    obs = rng.normal(size=(n, 4)).astype(np.float32)
+    good = (obs[:, 0] > 0).astype(np.int32)
+    actions = np.where(rng.random(n) < 0.9, good, 1 - good).astype(np.int32)
+    return {"obs": obs, "actions": actions,
+            "rewards": (actions == good).astype(np.float32),
+            "returns": (actions == good).astype(np.float32)
+            + rng.normal(size=n).astype(np.float32) * 0.1,
+            "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+            "terminals": np.ones((n,), np.float32)}
+
+
+def rl_family_cases(device, small=False):
+    """Each family at its reference defaults on ``device`` (``small``: the
+    card tests' sizes): ``(name, build(device), iterate(obj), update(obj)
+    or None for Dreamer, losses(metrics))``."""
+    import numpy as np
+
+    from ray_tpu_torch.rl import (APPO, BC, CQL, IMPALA, MARWIL,
+                                  AlgorithmConfig, DQNConfig,
+                                  DreamerParams, DreamerV3, SACConfig)
+
+    data = rl_offline_data(256 if small else 2048)
+    steps = 128 if small else 512
+    starts = dict(learning_starts=64) if small else {}
+    rng = np.random.default_rng(1)
+
+    def impala(cls):
+        def build(dev):
+            return (AlgorithmConfig(cls, device=dev)
+                    .environment("CartPole-v1")
+                    .env_runners(num_env_runners=0,
+                                 num_envs_per_env_runner=8,
+                                 rollout_fragment_length=32 if small
+                                 else 128).build())
+        return build
+
+    def impala_update(o):
+        o.learner.update(impala_batch)
+
+    impala_batch = {}
+
+    def impala_iter(o):
+        nonlocal impala_batch
+        _, _, batch, _ = o._rollout(o.learner.params, o.env_state, o.obs,
+                                    o.gen)
+        impala_batch = {k: v.cpu().numpy() for k, v in batch.items()}
+        return o.train()
+
+    replay = {}
+
+    def replay_iter(o):
+        m = o.train(steps_per_iteration=steps)
+        replay[o.config.params.__class__.__name__] = o.buffer.sample(
+            64, rng)
+        return m
+
+    def replay_update(o):
+        o._update(replay[o.config.params.__class__.__name__])
+
+    dreamer = (DreamerParams(batch_size=4, batch_length=8, horizon=5)
+               if small else DreamerParams())
+    return [
+        ("dqn", lambda d: DQNConfig(device=d).environment("CartPole-v1")
+         .training(**starts).build(), replay_iter, replay_update,
+         ("loss",)),
+        ("sac", lambda d: SACConfig(device=d).environment("CartPole-v1")
+         .training(**starts).build(), replay_iter, replay_update,
+         ("q_loss", "pi_loss")),
+        ("impala", impala(IMPALA), impala_iter, impala_update,
+         ("pi_loss", "vf_loss")),
+        ("appo", impala(APPO), impala_iter, impala_update,
+         ("pi_loss", "vf_loss")),
+        ("cql", lambda d: CQL(4, 2, device=d),
+         lambda o: o.train_on(data, batch_size=256),
+         lambda o: o._update({k: data[k][:256] for k in CQL.REQUIRED}),
+         ("td_loss", "cql_penalty")),
+        ("bc", lambda d: BC(4, 2, device=d),
+         lambda o: o.train_on(data, batch_size=256),
+         lambda o: o._update({k: data[k][:256] for k in ("obs", "actions")}),
+         ("pi_loss",)),
+        ("marwil", lambda d: MARWIL(4, 2, device=d),
+         lambda o: o.train_on(data, batch_size=256),
+         lambda o: o._update({k: data[k][:256] for k in
+                              ("obs", "actions", "returns")}),
+         ("pi_loss", "vf_loss")),
+        ("dreamer", lambda d: DreamerV3("CartPole-v1", dreamer, device=d),
+         lambda o: o.train(64 if small else 256), None,
+         ("wm_total", "actor_loss", "critic_loss")),
+    ]
+
+
+def rl_families(device="cuda", small=False, iters=RL_FAMILY_ITERS):
+    """Each family of ``rl_family_cases``: ``iters`` iterations (ms each,
+    losses finite), the update's ms, one iteration profiled, and one
+    update on ``device`` against the CPU from the same inputs (Dreamer:
+    the world-model loss and update with the same latent noise)."""
+    import numpy as np
+
+    out = {}
+    for name, build, iterate, update, losses in rl_family_cases(device,
+                                                                small):
+        obj = build(device)
+        _zero_launches()
+        iter_ms, metrics = [], []
+        for _ in range(iters):
+            m, ms = rl_timed(lambda: iterate(obj))
+            iter_ms.append(ms)
+            metrics.append(m)
+        counted = list(_all_launches())
+        vals = {k: metrics[-1].get(k) for k in losses}
+        finite = all(v is not None and bool(np.isfinite(v))
+                     for v in vals.values())
+        if update is None:
+            batch = obj._sample_batch()
+            aux, update_ms = rl_timed(lambda: obj._wm_update(batch))
+            _, ac_ms = rl_timed(lambda: obj._ac_update(aux["hs"],
+                                                       aux["zs"]))
+            update_ms = {"world_model": update_ms, "actor_critic": ac_ms}
+            profiled = rl_profile(lambda: iterate(obj))
+            check = rl_dreamer_vs_cpu(obj, lambda: build("cpu"))
+        else:
+            update_ms = float(np.median([rl_timed(lambda: update(obj))[1]
+                                         for _ in range(5)]))
+            profiled = rl_profile(lambda: iterate(obj))
+            check = rl_family_vs_cpu(name, obj, lambda: build("cpu"), update)
+        out[name] = {"ms_per_iter": float(np.median(iter_ms)),
+                     "first_iter_ms": iter_ms[0], "update_ms": update_ms,
+                     "losses": vals, "finite": finite,
+                     "profiled_iter": profiled, "vs_cpu": check,
+                     "k1_k4_launches": counted}
+        rl_no_port_kernels(f"rl_families {name}", counted, profiled)
+        if not finite:
+            raise AssertionError(f"rl_families {name}: losses {vals} after "
+                                 f"{iters} iterations")
+        if hasattr(obj, "stop"):
+            obj.stop()
+    return out
+
+
+def phase_rl_families(device="cuda"):
+    return {"families": rl_families(device), "iterations": RL_FAMILY_ITERS,
+            "params_atol": RL_PARAMS_ATOL,
+            "dreamer_loss_rtol": RL_DREAMER_LOSS_RTOL}
+
+
+def rl_phases(smi, names=RL_PHASES):
+    """The RL phases named in ``names``, each printing its line with the
+    card's name and power limit; returns their reports by name."""
+    import torch
+
+    out = {}
+    for name, phase in (("rl_ppo", phase_rl_ppo),
+                        ("rl_runners", phase_rl_runners),
+                        ("rl_multi_agent", phase_rl_multi_agent),
+                        ("rl_families", phase_rl_families)):
+        if name not in names:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = phase()
+        emit({"phase": name, "card": smi, **out[name],
+              "phase_s": time.perf_counter() - t0})
+    return out
+
+
+def rl_launches_by_path(rl, i):
+    """Kernel ``i``'s (K1-K4) launches on each RL path, by the profiler
+    over its profiled iteration (0: the RL paths run none of them)."""
+    key = ("K1", "K2", "K3", "K4")[i]
+    out = {name: rl[name]["profiled_iter"]["k1_k4_launches_by_profiler"][key]
+           for name in ("rl_ppo", "rl_runners", "rl_multi_agent")}
+    out["rl_families"] = sum(
+        f["profiled_iter"]["k1_k4_launches_by_profiler"][key]
+        for f in rl["rl_families"]["families"].values())
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -4910,7 +5593,8 @@ def main(argv) -> int:
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
-    if set(argv) - FOUR_CARD_PHASES - DATA_PHASES - SERVING_PHASES:
+    if set(argv) - FOUR_CARD_PHASES - DATA_PHASES - SERVING_PHASES \
+            - RL_PHASES:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     smi = phase_env()
     if argv:
@@ -4969,6 +5653,8 @@ def main(argv) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             emit({"phase": "data_vit", **phase_data_vit(vit)})
+        if RL_PHASES & set(argv):
+            rl_phases(smi, RL_PHASES & set(argv))
         print(smi, flush=True)
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5167,6 +5853,10 @@ def main(argv) -> int:
             f"{torch.cuda.device_count()} card(s) present; the phase needs "
             f"{MESH4_RANKS}")})
 
+    # the RL stack: rollouts and updates on the card, host runner
+    # processes; none of K1-K4 on its paths
+    rl = rl_phases(smi)
+
     main_case = k1["main_path"]
     row1, bwd = main_case["k1"], main_case["bwd"]
     gqa1, gqa_bwd = k1["mixtral_gqa"]["k1"], k1["mixtral_gqa"]["bwd"]
@@ -5231,7 +5921,8 @@ def main(argv) -> int:
                               "serve": serve["k1_launches"],
                               "disagg": disagg["k1_launches"],
                               "moe_forward": moe_fwd["k1_launches"],
-                              **by_path("K1"), **serving(0)},
+                              **by_path("K1"), **serving(0),
+                              **rl_launches_by_path(rl, 0)},
          "max_abs_err": row1["max_abs_err"], "ms": row1["ms"],
          "plain_ms": row1["plain_ms"], "bound_ms": row1["bound_ms"],
          "bound_by": row1["bound_by"], "library_ms": row1["library_ms"],
@@ -5242,7 +5933,8 @@ def main(argv) -> int:
         {"name": "K2 flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "195",
          "design": bwd["k2_design"], "launches": train["launches"]["K2"],
-         "launches_by_path": {**by_path("K2"), **serving(1)},
+         "launches_by_path": {**by_path("K2"), **serving(1),
+                              **rl_launches_by_path(rl, 1)},
          "max_abs_err": bwd["dq_max_abs_err"],
          "dq_flipped_vs_exact": bwd["dq_flipped_vs_exact"],
          "ms": bwd["k2_ms"],
@@ -5254,7 +5946,8 @@ def main(argv) -> int:
         {"name": "K3 flash_bwd_dkv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "232",
          "launches": train["launches"]["K3"],
-         "launches_by_path": {**by_path("K3"), **serving(2)},
+         "launches_by_path": {**by_path("K3"), **serving(2),
+                              **rl_launches_by_path(rl, 2)},
          "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
          "ms": bwd["k3_ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["k3_bound_ms"], "bound_by": bwd["k3_bound_by"],
@@ -5268,7 +5961,7 @@ def main(argv) -> int:
          "replaces": "ray_tpu/experimental/channel/transport.py:285",
          "design": k4["design"], "launches": ring["k4_launches"],
          "launches_by_path": {"ring": ring["k4_launches"], **serving(3),
-                              **health_pings},
+                              **health_pings, **rl_launches_by_path(rl, 3)},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],

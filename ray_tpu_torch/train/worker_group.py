@@ -183,6 +183,30 @@ def _takes_config(fn: Callable) -> bool:
     return len(params) >= 1
 
 
+def serve_commands(conn, target) -> None:
+    """Serve ``target``'s methods as commands over the pipe ``conn``: each
+    message is a pickled ``(method, args)``, each answer ``("ok",
+    value)`` or ``("error", traceback)``, until ``shutdown`` or until the
+    other end closes.  Closes ``conn``.  The env runners of
+    ``ray_tpu_torch.rl`` serve theirs the same way."""
+    while True:
+        try:
+            cmd, args = pickle.loads(conn.recv_bytes())
+        except (EOFError, OSError):
+            break
+        try:
+            reply = ("ok", getattr(target, cmd)(*args))
+        except BaseException:  # noqa: BLE001 — reported to the caller
+            reply = ("error", traceback.format_exc())
+        try:
+            conn.send_bytes(pickle.dumps(reply))
+        except (OSError, ValueError):
+            break
+        if cmd == "shutdown":
+            break
+    conn.close()
+
+
 def _worker_main(conn, env: Dict[str, str]) -> None:
     """A worker process: set its environment (``LOCAL_RANK``, the run's
     store) before anything touches CUDA, then serve ``TrainWorker``
@@ -198,22 +222,7 @@ def _worker_main(conn, env: Dict[str, str]) -> None:
         halt_watcher = start_watcher(kv_mod.address(),
                                      accelerators.node_id())
     worker = TrainWorker()
-    while True:
-        try:
-            cmd, args = pickle.loads(conn.recv_bytes())
-        except (EOFError, OSError):
-            break
-        try:
-            reply = ("ok", getattr(worker, cmd)(*args))
-        except BaseException:  # noqa: BLE001 — reported to the controller
-            reply = ("error", traceback.format_exc())
-        try:
-            conn.send_bytes(pickle.dumps(reply))
-        except (OSError, ValueError):
-            break
-        if cmd == "shutdown":
-            break
-    conn.close()
+    serve_commands(conn, worker)
     sess = worker._session
     if sess is None or sess.finished.is_set():
         if halt_watcher is not None:

@@ -762,3 +762,34 @@ def test_llm_replica_on_card_matches_cpu_engine():
     assert [g["num_generated_tokens"] for g in got] == \
         [len(w.token_ids) for w in want]
     assert stats["engine_steps"] > 0 and stats["timing"]["decode_tokens"] > 0
+
+
+@pytest.mark.gpu
+def test_rl_ppo_update_matches_cpu_on_card():
+    """``chip_smoke.py``'s ``rl_ppo`` check at a small size (64 envs x 16
+    steps): one ``PPOLearner._update_with_perms`` and one
+    ``compute_gae`` on the card against the CPU from the same
+    parameters, batch and permutations (params atol 1e-4, GAE 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the check compares the card with "
+                    "the CPU")
+    out = _chip_smoke().rl_small_ppo_check("cuda")
+    assert out["update_params_max_abs_err"] <= 1e-4
+    assert out["gae_max_abs_err"] <= 1e-5
+
+
+@pytest.mark.gpu
+def test_rl_families_update_match_cpu_on_card():
+    """``chip_smoke.py``'s ``rl_families`` at the card tests' sizes: DQN,
+    SAC, IMPALA, APPO, CQL, BC, MARWIL and DreamerV3 each take two
+    iterations on the card (losses finite) and one update there against
+    the CPU from the same inputs (Dreamer: the world-model loss and
+    update with the same latent noise).  No gymnasium."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the check compares the card with "
+                    "the CPU")
+    out = _chip_smoke().rl_families("cuda", small=True, iters=2)
+    assert set(out) == {"dqn", "sac", "impala", "appo", "cql", "bc",
+                        "marwil", "dreamer"}
+    assert all(f["finite"] for f in out.values())
+    assert all(f["k1_k4_launches"] == [0, 0, 0, 0] for f in out.values())

@@ -139,3 +139,37 @@ def test_port_lints_clean():
     doc = ast.get_docstring(
         port.file("ray_tpu_torch/util/fault_injection.py").tree)
     assert [s for s in sites if f"``{s}``" not in doc] == []
+
+
+RL_MODULES = ("_respawn", "env", "models", "ppo", "env_runner", "algorithm",
+              "impala", "dqn", "sac", "bc", "cql", "multi_agent_env",
+              "multi_agent_ppo", "dreamer", "convert", "__init__")
+
+
+def test_rl_sources_are_covered():
+    """The RL package's modules are among the sources checked for jax,
+    optax and ``ray_tpu`` imports."""
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    want = {f"ray_tpu_torch/rl/{m}.py" for m in RL_MODULES}
+    assert want <= rel, sorted(want - rel)
+
+
+def test_rl_import_leaves_jax_optax_and_gymnasium_unloaded():
+    """``ray_tpu_torch.rl`` and each of its modules import in a fresh
+    interpreter without loading jax, optax, ``ray_tpu`` or gymnasium
+    (gymnasium is imported only by ``GymVectorEnv``, as the
+    reference's)."""
+    mods = ", ".join(f"ray_tpu_torch.rl.{m}" for m in RL_MODULES
+                     if m != "__init__")
+    code = (
+        "import sys\n"
+        f"import ray_tpu_torch.rl, {mods}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'ray_tpu', 'gymnasium'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
