@@ -266,12 +266,39 @@ Phases, each printing one JSON line:
    DreamerV3 at their reference defaults, three iterations each, losses
    finite, one update against the CPU (Dreamer: the world-model loss and
    update with the same latent noise).
+16. The RLHF loop, weight sync and the tiered checkpoint plane
+   (``python3 chip_smoke.py rlhf trainer_tiered`` runs them alone).
+   ``rlhf``: ``RLHFLoop`` with the reference's end-to-end configuration
+   (4 iterations, 2 rollout processes on the host, batch 32, every read
+   verified against its digest, a rollout process killed at iteration 2,
+   a publish fault at 2 and a reward fault at 3), the learner on the
+   card in one worker; it must finish every iteration with every fault
+   fired, a respawn, the killed batch dropped and none counted twice,
+   consumed versions non-decreasing, version 5 at epoch 0 and a finite
+   loss, and one learner update on the card must match the CPU's.  It
+   prints each iteration's wall split into rollout, reward, update and
+   publish, the publisher's and subscribers' stats, the worker's and
+   rollout processes' start-up, and K1-K4 counted in the worker (0).
+   ``weight_sync_7b``: a ``WeightPublisher`` on the card publishes five
+   versions of a Llama-2-7B-width, 2-layer bf16 tree (1.33 GB) to a
+   ``WeightSubscriber`` in a spawned CPU process, the last two into
+   reused payload slots; each version must be adopted with its digest
+   matching and every leaf's sha256 equal to the card's.  ``trainer_tiered``: ``TorchTrainer`` with one worker on
+   the card, ``CheckpointConfig(mode="tiered")`` and one restart
+   allowed, the ``trainer`` phase's step at 2 layers (fp32 params, both
+   AdamW moments: 8.0 GB per generation, after a host-memory reckoning);
+   each of 7 steps saves through ``ctx.checkpointer()``, the first
+   attempt raises at step 3 after its loss, and the restarted worker
+   must restore from peer RAM with 0 disk reads, every leaf equal to the
+   step-2 save's sha256, step 3's loss bit-equal, K1 = K2 = K3 = 2 per
+   step, and its fourth save in the first's snapshot buffer.
 
 Then the ``kernels`` line (every ported kernel with its launches on its
 main path: K1, K2 and K3 in ``train``, K4 in ``ring``; the launches of
 every path that runs it, the trainer paths' counted in their workers,
 0 on the serving and the RL paths (the RL paths' by the profiler),
-and K1-K3 at
+K1-K3 2 per step on ``trainer_tiered`` and 0 on ``rlhf`` (in its
+worker) and ``weight_sync_7b``, and K1-K3 at
 Mixtral's attention shape), the
 ``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the traceback is
@@ -386,6 +413,19 @@ RL_RUNNERS, RL_RUNNER_ENVS, RL_RUNNER_ITERS = 4, 32, 5
 RL_MA_ENVS, RL_MA_ITERS = 512, 20
 RL_FAMILY_ITERS = 3
 RL_PARAMS_ATOL, RL_GAE_ATOL, RL_DREAMER_LOSS_RTOL = 1e-4, 1e-5, 1e-5
+# the RLHF loop, weight sync and the tiered checkpoint plane
+TIERED_PHASES = {"rlhf", "trainer_tiered"}
+# the CPU tests' tolerances for the RLHF learner: a loss from the same
+# params and batch, params after Adam steps
+RLHF_LOSS_ATOL, RLHF_PARAMS_ATOL = 1e-6, 1e-4
+# five versions: the fourth and fifth reuse the first two's payload slots
+WS7B_LAYERS, WS7B_VERSIONS = 2, 5
+# seven steps: the restarted worker saves four times, the fourth into the
+# first's snapshot buffer
+TIERED_LAYERS, TIERED_STEPS, TIERED_FAIL_AT = 2, 7, 3
+# the data_vit phase's page-locked H2D copy on the H100 80GB HBM3 at
+# 700 W: 154 MB in 2.929 ms
+PINNED_COPY_GBPS = 154.14e6 / 2.929e-3 / 1e9
 # the profiler's kernel names of K1-K4 (by fragment)
 RL_PROFILER_NAMES = {"K1": "flash_fwd", "K2": "flash_bwd_dq",
                      "K3": "flash_bwd_dkv", "K4": "remote_"}
@@ -5582,6 +5622,616 @@ def rl_launches_by_path(rl, i):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the RLHF loop, weight sync and the tiered checkpoint plane
+# ---------------------------------------------------------------------------
+
+
+def host_leaf_sha256(tree):
+    """``{path: sha256 hex}`` of every tensor leaf of a tree on the host
+    (on a pool of threads; a CUDA leaf is copied to the host first)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from ray_tpu_torch.rl.weight_sync import _leaf_bytes
+    from ray_tpu_torch.train.checkpoint_async import leaf_paths
+
+    _, paths, values = leaf_paths(tree)
+    leaves = [(p, x) for p, x in zip(paths, values)
+              if isinstance(x, torch.Tensor)]
+    with ThreadPoolExecutor(8) as ex:
+        digests = list(ex.map(
+            lambda px: hashlib.sha256(_leaf_bytes(px[1])[2]).hexdigest(),
+            leaves))
+    return {p: d for (p, _), d in zip(leaves, digests)}
+
+
+def blob_leaf_sha256(blob):
+    """``{path: sha256 hex}`` of every tensor piece of a sole writer's
+    shard blob, read in place (the snapshot as it was saved)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.train import checkpoint_async as ca
+
+    regions = [(path, data) for path, _b, kind, _d, _s, data
+               in ca.blob_pieces(blob) if kind == "torch"]
+    with ThreadPoolExecutor(8) as ex:
+        digests = list(ex.map(lambda r: hashlib.sha256(r[1]).hexdigest(),
+                              regions))
+    return {p: d for (p, _), d in zip(regions, digests)}
+
+
+def rlhf_update_check(device="cuda"):
+    """One RLHF learner update (REINFORCE, Adam at the loop's lr) on
+    ``device`` against the same update on the CPU, from the same params
+    (the module's init from seed 0) and batch (seed 1, the scripted
+    reward)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl import rlhf
+    from ray_tpu_torch.rl.models import ActorCriticModule, to_device
+
+    cfg = rlhf.RLHFConfig()
+    mod = ActorCriticModule(cfg.obs_dim, cfg.vocab_size, cfg.hidden)
+    base = mod.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    obs = rng.standard_normal((64, cfg.obs_dim)).astype(np.float32)
+    actions = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    batch = {"obs": obs, "actions": actions,
+             "rewards": rlhf.scripted_reward(obs, actions, cfg)}
+    out = {}
+    for dev in ("cpu", device):
+        params = to_device(base, torch.device(dev), requires_grad=True)
+        tx, update = rlhf._make_update_fn(mod, cfg.lr)
+        params, _, loss = update(params, tx.init(params), {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[dev] = (float(loss), {f"{t}.{k}": v.detach().cpu()
+                                  for t in params
+                                  for k, v in params[t].items()})
+    loss_diff = abs(out["cpu"][0] - out[device][0])
+    params_diff = max(float((out["cpu"][1][k] - v).abs().max())
+                      for k, v in out[device][1].items())
+    if not (loss_diff <= RLHF_LOSS_ATOL and params_diff <= RLHF_PARAMS_ATOL):
+        raise AssertionError(
+            f"rlhf: the learner update on {device} differs from the CPU's: "
+            f"loss by {loss_diff} (atol {RLHF_LOSS_ATOL}), params by "
+            f"{params_diff} (atol {RLHF_PARAMS_ATOL})")
+    return {"loss_abs_diff": loss_diff, "params_max_abs_diff": params_diff,
+            "loss_atol": RLHF_LOSS_ATOL, "params_atol": RLHF_PARAMS_ATOL}
+
+
+def rlhf_worker_loop(config):
+    """The RLHF worker's loop (``rlhf._rlhf_train_loop``) between K1-K4's
+    counts zeroed and read in the worker, reported as a last row."""
+    t_start = time.time()
+    from ray_tpu_torch import train
+    from ray_tpu_torch.rl import rlhf
+
+    _zero_launches()
+    rlhf._rlhf_train_loop(config)
+    train.report({"kind": "launches", "k1_k2_k3_k4": list(_all_launches()),
+                  "t_loop_start": t_start})
+
+
+def phase_rlhf(device=None):
+    """``RLHFLoop`` with the reference's end-to-end configuration
+    (``tests/test_rlhf.py:217-229``), the learner on the card; the
+    worker's loop is wrapped only to count K1-K4 there.  Fails unless the
+    reference test's checks hold and one update on the card matches the
+    CPU's."""
+    import numpy as np
+
+    from ray_tpu_torch.rl import RLHFConfig, RLHFLoop, rlhf
+
+    t0 = time.perf_counter()
+    check = rlhf_update_check(device or "cuda")
+    cfg = RLHFConfig(device=device,
+        iterations=4, num_rollout_actors=2, rollout_batch=32,
+        learner_batch_size=32, name="rlhf-e2e", mesh="dp",
+        sample_timeout_s=60.0, verify_weights_on_read=True,
+        chaos={"kill_rollout_at_iter": 2, "publish_fault_at": 2,
+               "reward_fault_at": 3})
+    memory_before_spawn("rlhf")
+    loop_fn = rlhf._rlhf_train_loop
+    rlhf._rlhf_train_loop = rlhf_worker_loop  # travels by reference
+    t_fit = time.time()
+    try:
+        result = RLHFLoop(cfg).run()
+    finally:
+        rlhf._rlhf_train_loop = loop_fn
+    fit_s = time.time() - t_fit
+    if result.error is not None:
+        raise AssertionError(f"rlhf: {result.error}")
+    rows = result.metrics_history
+    counted = rows.pop()
+    m = rows[-1]
+    cv = m["consumed_versions"]
+    problems = [name for name, ok in (
+        ("4 iterations", m["training_iteration"] == 4),
+        ("publish fault fired", m["publish_faults_fired"] >= 1),
+        ("reward fault fired", m["reward_faults_fired"] >= 1),
+        ("a respawn", m["respawns_used"] >= 1),
+        ("a dropped batch", m["trajectories_dropped"] >= 1),
+        ("no duplicate", m["duplicates_rejected"] == 0),
+        ("consumed <= produced",
+         m["trajectories_consumed"] <= m["trajectories_produced"]),
+        ("consumed versions non-decreasing",
+         len(cv) >= 3 and all(a <= b for a, b in zip(cv, cv[1:]))),
+        ("version 5 at epoch 0",
+         m["published_version"] == 5 and m["publisher_epoch"] == 0),
+        ("rows consumed", m["rows_consumed"] > 0),
+        ("finite loss", bool(np.isfinite(m["loss"]))),
+        ("no rejected payload",
+         all(s["rejected"] == 0 for s in m["subscriber_stats"])),
+        ("K1-K4 0 in the worker", counted["k1_k2_k3_k4"] == [0] * 4))
+        if not ok]
+    if problems:
+        raise AssertionError(f"rlhf: failed {problems}: {m}")
+    return {
+        "model": "ActorCriticModule (obs 8, vocab 8, hidden 32x32)",
+        "learner": f"{device or 'cuda'} in one TorchTrainer worker",
+        "update_vs_cpu": check,
+        "iterations": [{"iteration": r["training_iteration"],
+                        "wall_s": r["iteration_walls_s"][-1],
+                        **r["iteration_split_s"],
+                        "loss": r["loss"], "mean_reward": r["mean_reward"],
+                        "published_version": r["published_version"],
+                        "last_publish": r["last_publish"]}
+                       for r in rows],
+        "publisher": {k: v for k, v in m.items()
+                      if k.startswith("publisher_")},
+        "subscribers": m["subscriber_stats"],
+        "ledger": {k: m[k] for k in (
+            "trajectories_produced", "trajectories_consumed",
+            "trajectories_dropped", "duplicates_rejected")},
+        "faults": {k: m[k] for k in ("publish_faults_fired",
+                                     "reward_faults_fired",
+                                     "respawns_used")},
+        "consumed_versions": cv,
+        "worker_start_s": counted["t_loop_start"] - t_fit,
+        "loop_setup_s": m["setup_s"],
+        "rollout_startup_s": m["rollout_startup_s"],
+        "k1_k2_k3_k4_launches": counted["k1_k2_k3_k4"],
+        "fit_s": fit_s, "phase_s": time.perf_counter() - t0}
+
+
+def ws7b_subscriber(conn, kv_addr):
+    """The weight_sync_7b subscriber: a CPU process that adopts each
+    version it is told of, verifies it against its digest, and answers
+    with its leaves' sha256 and its fetch and verify times."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    t0 = time.perf_counter()
+    from ray_tpu_torch._private import kv as kv_mod
+
+    os.environ[kv_mod.ENV_KV] = kv_addr
+    from ray_tpu_torch.rl.weight_sync import WeightSubscriber, params_digest
+
+    sub = WeightSubscriber("ws7b", verify_on_read=True, device="cpu")
+    conn.send({"ready_s": time.perf_counter() - t0})
+    while True:
+        msg = conn.recv()
+        if msg[0] == "stop":
+            break
+        want = msg[1]
+        deadline = time.monotonic() + 300
+        while (sub.version is None or sub.version.version < want) and \
+                time.monotonic() < deadline:
+            sub.poll(timeout_s=1.0)
+        t1 = time.perf_counter()
+        params, ver = sub.current()  # verify_on_read: hashed again
+        verify_read_s = time.perf_counter() - t1
+        conn.send({"version": ver.version, "epoch": ver.epoch,
+                   "digest": params_digest(params, ver.version, ver.epoch),
+                   "leaf_sha256": host_leaf_sha256(params),
+                   "verify_on_read_s": verify_read_s, **sub.last_fetch,
+                   **{k: v for k, v in sub.stats.items()}})
+        del params
+
+
+def phase_weight_sync_7b(device="cuda"):
+    """``WS7B_VERSIONS`` versions of a Llama-2-7B-width, 2-layer bf16 tree
+    published from the card to a subscriber in a spawned CPU process
+    through the run store this process hosts (the first three into new
+    payload slots, the rest into reused ones).  Fails unless each version
+    is adopted, the digest matches on both sides and every leaf's sha256
+    equals the card's."""
+    import multiprocessing
+
+    import torch
+
+    from ray_tpu_torch._private import kv as kv_mod
+    from ray_tpu_torch._private.shm import sweep_segments
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.rl.weight_sync import WeightPublisher
+    from ray_tpu_torch.rl.weight_sync import _read_latest_record
+
+    t0 = time.perf_counter()
+    kv = kv_mod.host()
+    old = os.environ.get(kv_mod.ENV_KV)
+    os.environ[kv_mod.ENV_KV] = kv.addr
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
+                              num_layers=WS7B_LAYERS,
+                              param_dtype=torch.bfloat16)
+    params = llama_init(cfg, seed=0, device=device)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 [params["embed"], params["lm_head"], params["final_norm"],
+                  *params["layers"].values()])
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=ws7b_subscriber, args=(child, kv.addr),
+                       daemon=True, name="ws7b-subscriber")
+    t_spawn = time.perf_counter()
+    proc.start()
+    child.close()
+    pub = WeightPublisher("ws7b", resume=False, keep=2)
+    versions = []
+    try:
+        if not parent.poll(300):
+            raise AssertionError("weight_sync_7b: the subscriber did not "
+                                 "start within 300 s")
+        started = parent.recv()
+        spawn_to_ready_s = time.perf_counter() - t_spawn
+        for i in range(WS7B_VERSIONS):
+            if i:  # a new version: every layer's norms and one embed row
+                with torch.no_grad():
+                    params["final_norm"].add_(1.0)
+                    params["embed"][i].add_(1.0)
+            t1 = time.perf_counter()
+            card = host_leaf_sha256(params)
+            card_hash_s = time.perf_counter() - t1
+            ver = pub.publish(params)
+            committed = _read_latest_record("ws7b")["digest"]
+            parent.send(("adopt", ver.version))
+            if not parent.poll(600):
+                raise AssertionError(f"weight_sync_7b: v{ver.version} not "
+                                     "adopted within 600 s")
+            got = parent.recv()
+            leaves_equal = got["leaf_sha256"] == card
+            row = {"version": ver.version, "adopted": got["version"],
+                   "publish_ms": {k[:-2]: v * 1e3 for k, v in
+                                  pub.last_publish.items()
+                                  if k.endswith("_s")},
+                   "payload_bytes": pub.last_publish["bytes"],
+                   "new_slot": pub.last_publish["new_slot"],
+                   "digest_host_gbps": nbytes / pub.last_publish[
+                       "digest_s"] / 1e9,
+                   "subscriber_fetch_ms": got["fetch_s"] * 1e3,
+                   "subscriber_verify_ms": got["verify_s"] * 1e3,
+                   "subscriber_verify_on_read_ms":
+                       got["verify_on_read_s"] * 1e3,
+                   "card_leaf_hash_ms": card_hash_s * 1e3,
+                   "digest_equal": got["digest"] == committed,
+                   "leaves": len(card), "leaves_bit_equal": leaves_equal,
+                   "channel_updates": got["channel_updates"],
+                   "rejected": got["rejected"]}
+            versions.append(row)
+            if not (got["version"] == ver.version and row["digest_equal"]
+                    and leaves_equal and got["rejected"] == 0):
+                raise AssertionError(f"weight_sync_7b: {row}")
+        parent.send(("stop",))
+        proc.join(60)
+    finally:
+        if proc.is_alive():
+            proc.kill()
+        pub.close()
+        sweep_segments(kv)
+        if old is None:
+            os.environ.pop(kv_mod.ENV_KV, None)
+        else:
+            os.environ[kv_mod.ENV_KV] = old
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"model": "llama2_7b width", "layers": WS7B_LAYERS,
+            "dtype": "bfloat16", "bytes": nbytes,
+            "subscriber": "a spawned CPU process",
+            "subscriber_start_s": started["ready_s"],
+            "subscriber_spawn_to_ready_s": spawn_to_ready_s,
+            "versions": versions, "phase_s": time.perf_counter() - t0}
+
+
+def tiered_config(layers=TIERED_LAYERS):
+    """``trainer_tiered``'s model: the ``train`` phase's at ``layers``."""
+    return dataclasses.replace(train_config(), num_layers=layers)
+
+
+def tiered_reckoning(storage):
+    """The host memory and disk one tiered generation needs at
+    ``TIERED_LAYERS`` against what this machine has: the local tier keeps
+    two generations and one is in flight, the replica server two and one
+    spare buffer, a restore fetches one and reassembles one.  The depth
+    is cut to one layer only if that does not fit."""
+    import shutil
+
+    def need(layers):
+        gen = tiered_config(layers).num_params() * 12
+        return gen, {"host": gen * 8, "disk": gen * 2}
+
+    with open("/proc/meminfo") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024
+               for line in f}
+    free_disk = shutil.disk_usage(storage).free
+    layers = TIERED_LAYERS
+    gen, want = need(layers)
+    if want["host"] > mem["MemAvailable"] or want["disk"] > free_disk:
+        layers = 1
+        gen, want = need(layers)
+    return layers, {"generation_bytes": gen,
+                    "host_bytes_needed": want["host"],
+                    "mem_available_bytes": mem["MemAvailable"],
+                    "disk_bytes_needed": want["disk"],
+                    "disk_free_bytes": free_disk,
+                    "layers": layers,
+                    "depth_cut": "32 -> %d layers: fp32 params and both "
+                                 "AdamW moments, 12 B per param" % layers}
+
+
+def tiered_card_loop(config):
+    """``trainer_tiered``'s loop in its one worker on the card: the
+    ``trainer`` phase's step (seed 0, tokens from seed 4) at
+    ``config["layers"]`` layers, each of ``TIERED_STEPS`` steps saved
+    (params, both AdamW moments, the step) through
+    ``ctx.checkpointer()``.  A first attempt hashes its step-2 save,
+    waits for its last save's persist at step ``TIERED_FAIL_AT`` after
+    that step's loss, and raises; a restarted one restores through
+    ``ctx.restore_checkpoint()`` and runs the rest, its last save with
+    ``wait_persist=True``.  Reports a start row, one row per step and
+    the saves' persist times."""
+    t_start = time.time()
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               make_llama_trainer,
+                                               tree_leaves)
+    from ray_tpu_torch.train import checkpoint_async as ca
+    from ray_tpu_torch.train.checkpoint import _place_like
+
+    ctx = train.get_context()
+    dev = ctx.get_device()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    cfg = tiered_config(config["layers"])
+    tr = make_llama_trainer(cfg, optimizer=default_optimizer(
+        warmup=1, decay_steps=1000), device=dev)
+    state = tr.init_state(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, SEQ + 1),
+                                     generator=gen, device=dev)}
+    ckpt = ctx.checkpointer()
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = ctx.restore_checkpoint()
+    restore_s = time.perf_counter() - t0
+    attempt = "first" if res is None else "restarted"
+    start = {"kind": "start", "attempt": attempt, "t_loop_start": t_start,
+             "t_cuda_ready": t_cuda}
+    if res is not None:
+        t1 = time.perf_counter()
+        start["restored_sha256"] = host_leaf_sha256(res.tree)
+        hash_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        state = _place_like(res.tree, state)
+        for t in tree_leaves(state["params"]):
+            t.requires_grad_(True)
+        torch.cuda.synchronize()
+        res_tree, res.tree = res.tree, None
+        del res_tree  # the host tree's memory, before the saves want it
+        start["restore"] = {
+            "index": res.index, "tier": res.tier,
+            "disk_reads": res.disk_reads,
+            "tier_by_rank": {str(k): v for k, v in res.tier_by_rank.items()},
+            "ladder_ms": restore_s * 1e3,
+            "ms_by_tier": {k: v * 1e3 for k, v in res.seconds.items()},
+            "h2d_ms": (time.perf_counter() - t1) * 1e3,
+            "hash_ms": hash_s * 1e3, "step": state["step"]}
+    train.report(start)
+    handles, buffers = [], set()
+
+    def persisted():
+        return [{"index": h.index, "bytes": h.nbytes,
+                 "snapshot_ms": h.snapshot_s * 1e3,
+                 "push_ms": h.push_s * 1e3, "persist_ms": h.persist_s * 1e3,
+                 "ram_acked": h.ram_acked, "tier": h.tier,
+                 "committed": bool(h.committed_path)} for h in handles]
+
+    for step in range(state["step"], TIERED_STEPS):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        c0, p0 = time.thread_time(), time.process_time()
+        t0 = time.perf_counter()
+        profiled = None
+        if attempt == "first" and step == 1 and torch.cuda.is_available():
+            # one step under the profiler, a persist in flight beside it
+            held = {}
+            by_name, split = device_profile(
+                lambda: held.update(out=tr.step(state, batch)))
+            state, m = held["out"]
+            profiled = {"device_busy_ms": split.get("device_busy_ms",
+                                                    "not measured"),
+                        "call_ms": split.get("call_ms"),
+                        "by_class": device_ms_by_class(by_name),
+                        "top_kernels": rank_kernels(by_name)[1][:5]}
+        else:
+            state, m = tr.step(state, batch)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        loss = float(m["loss"])
+        compute_ms = (time.perf_counter() - t0) * 1e3
+        row = {"kind": "step", "attempt": attempt, "step": step,
+               "loss": loss, "compute_ms": compute_ms,
+               "enqueue_ms": enqueue_ms,
+               "loop_thread_cpu_ms": (time.thread_time() - c0) * 1e3,
+               "process_cpu_ms": (time.process_time() - p0) * 1e3,
+               "profiled": profiled,
+               "k1_k2_k3": [b - a for a, b in zip(before,
+                                                  _launch_counts())]}
+        if attempt == "first" and step == TIERED_FAIL_AT:
+            # the last save's whole persist (its peer push included) ends
+            # before the failure, so the restart finds it in peer RAM
+            ckpt.wait(600.0)
+            row["last_save_ram_acked"] = handles[-1].ram_acked
+            row["persisted"] = persisted()
+            train.report(row)
+            raise RuntimeError(f"injected failure at step {step}, after "
+                               "its loss and before its save")
+        wait = attempt == "restarted" and step == TIERED_STEPS - 1
+        t0 = time.perf_counter()
+        h = ckpt.save(state, {"step": step, "loss": loss},
+                      wait_persist=wait)
+        row.update(stall_ms=(time.perf_counter() - t0) * 1e3,
+                   snapshot_ms=h.snapshot_s * 1e3, bytes=h.nbytes,
+                   index=h.index, wait_persist=wait)
+        ptr = ca._local_get(h.run, h.index, h.rank).data_ptr()
+        row["buffer_reused"] = ptr in buffers
+        buffers.add(ptr)
+        if attempt == "first" and step == TIERED_FAIL_AT - 1:
+            t1 = time.perf_counter()
+            row["saved_sha256"] = blob_leaf_sha256(
+                ca._local_get(h.run, h.index, h.rank))
+            row["hash_ms"] = (time.perf_counter() - t1) * 1e3
+        handles.append(h)
+        train.report(row, checkpoint=h)
+    ckpt.wait(600.0)
+    train.report({"kind": "persist", "attempt": attempt,
+                  "persisted": persisted(),
+                  "k4_launches": _all_launches()[3]})
+
+
+def phase_trainer_tiered(use_gpu=True):
+    """``tiered_card_loop`` through ``TorchTrainer`` on the card under
+    ``CheckpointConfig(mode="tiered")`` and ``FailureConfig(max_failures
+    =1)``.  Fails unless the restarted worker restores from peer RAM with
+    0 disk reads, every restored leaf's sha256 equals the step-2 save's,
+    its step-3 loss equals the first attempt's bit for bit, and K1, K2
+    and K3 launch once per layer per step."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchTrainer)
+
+    t0 = time.perf_counter()
+    allocated = memory_before_spawn("trainer_tiered")
+    tmp = tempfile.mkdtemp(prefix="trainer_tiered_")
+    layers, reckoning = tiered_reckoning(tmp)
+    emit({"phase": "trainer_tiered_reckoning", **reckoning})
+    t_fit = time.time()
+    try:
+        result = TorchTrainer(
+            tiered_card_loop, train_loop_config={"layers": layers},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=use_gpu),
+            run_config=RunConfig(
+                name="trainer_tiered", storage_path=tmp,
+                checkpoint_config=CheckpointConfig(mode="tiered",
+                                                   num_to_keep=1),
+                failure_config=FailureConfig(max_failures=1))).fit()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fit_s = time.time() - t_fit
+    if result.error is not None:
+        raise AssertionError(f"trainer_tiered: {result.error}")
+    rows = result.metrics_history
+    starts = [r for r in rows if r["kind"] == "start"]
+    steps = [r for r in rows if r["kind"] == "step"]
+    first = {r["step"]: r for r in steps if r["attempt"] == "first"}
+    again = {r["step"]: r for r in steps if r["attempt"] == "restarted"}
+    restart = next(r for r in starts if r["attempt"] == "restarted")
+    restore = restart["restore"]
+    saved = first[TIERED_FAIL_AT - 1]["saved_sha256"]
+    persist = [r for r in rows if r["kind"] == "persist"]
+    per_step = {tuple(r["k1_k2_k3"]) for r in steps}
+    async_saves = [r for r in steps if "stall_ms" in r
+                   and not r["wait_persist"]]
+    sync_save = [r for r in steps if r.get("wait_persist")]
+    problems = [name for name, ok in (
+        ("restored from peer RAM", restore["tier"] == "memory"
+         and set(restore["tier_by_rank"].values()) == {"peer"}),
+        ("the step-2 save acked in peer RAM before the failure",
+         first[TIERED_FAIL_AT]["last_save_ram_acked"]),
+        ("0 disk reads", restore["disk_reads"] == 0),
+        ("the step-2 save restored", restore["step"] == TIERED_FAIL_AT),
+        ("every leaf's sha256 equal",
+         restart["restored_sha256"] == saved and len(saved) > 0),
+        ("step 3's loss bit-equal",
+         again[TIERED_FAIL_AT]["loss"] == first[TIERED_FAIL_AT]["loss"]),
+        ("K1 = K2 = K3 = layers per step", per_step == {(layers,) * 3}),
+        ("the restarted worker's fourth save reused a snapshot buffer",
+         [r["buffer_reused"] for r in steps if r["attempt"] == "restarted"
+          and "stall_ms" in r] == [False] * 3 + [True]))
+        if not ok]
+    out = {
+        "model": "llama2_7b", "layers": layers,
+        "depth_cut": reckoning["depth_cut"], "batch": 1, "seq": SEQ,
+        "remat_policy": "save_attn", "allocated_before_spawn_gb": allocated,
+        "generation_bytes": async_saves[0]["bytes"],
+        "steps": [{k: r.get(k) for k in (
+            "attempt", "step", "compute_ms", "enqueue_ms",
+            "loop_thread_cpu_ms", "process_cpu_ms", "profiled")}
+            for r in steps],
+        "saves": [{k: r.get(k) for k in (
+            "attempt", "step", "index", "compute_ms", "stall_ms",
+            "snapshot_ms", "buffer_reused", "wait_persist")} | {
+            "snapshot_gbps": r["bytes"] / r["snapshot_ms"] / 1e6}
+            for r in steps if "stall_ms" in r],
+        "pinned_copy_gbps_data_vit": PINNED_COPY_GBPS,
+        "async_save_stall_ms": [r["stall_ms"] for r in async_saves],
+        "wait_persist_save_stall_ms": [r["stall_ms"] for r in sync_save],
+        "persisted": {r["attempt"]: r["persisted"] for r in persist},
+        "first_attempt_at_failure": first[TIERED_FAIL_AT].get("persisted"),
+        "restore": restore,
+        "losses": {"first": [first[k]["loss"] for k in sorted(first)],
+                   "restarted": [again[k]["loss"] for k in sorted(again)]},
+        "launches": {**{k: sum(r["k1_k2_k3"][i] for r in steps)
+                        for i, k in enumerate(("K1", "K2", "K3"))},
+                     "K4": sum(r["k4_launches"] for r in persist)},
+        "k1_k2_k3_per_step": sorted(per_step),
+        "worker_start_s": [r["t_cuda_ready"] - t_fit for r in starts],
+        "fit_s": fit_s, "phase_s": time.perf_counter() - t0}
+    if problems:
+        raise AssertionError(f"trainer_tiered: failed {problems}: {out}")
+    return out
+
+
+def tiered_phases(smi, names=TIERED_PHASES):
+    """The RLHF (with weight_sync_7b) and trainer_tiered phases named in
+    ``names``, each printing its line with the card's name and power
+    limit; returns their reports by name."""
+    import torch
+
+    out = {}
+    for name, phase in (("rlhf", phase_rlhf),
+                        ("weight_sync_7b", phase_weight_sync_7b),
+                        ("trainer_tiered", phase_trainer_tiered)):
+        if name not in names and not (name == "weight_sync_7b"
+                                      and "rlhf" in names):
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = _all_launches()
+        out[name] = phase()
+        out[name]["k1_k2_k3_k4_in_this_process"] = [
+            b - a for a, b in zip(before, _all_launches())]
+        emit({"phase": name, "card": smi, **out[name]})
+    return out
+
+
+def tiered_launches_by_path(tiered, i):
+    """Kernel ``i``'s (K1-K4) launches on the RLHF, weight-sync and
+    tiered-trainer paths: ``rlhf``'s and ``trainer_tiered``'s counted in
+    their workers (both attempts' steps), ``weight_sync_7b``'s in this
+    process."""
+    key = ("K1", "K2", "K3", "K4")[i]
+    return {"rlhf": tiered["rlhf"]["k1_k2_k3_k4_launches"][i],
+            "weight_sync_7b":
+                tiered["weight_sync_7b"]["k1_k2_k3_k4_in_this_process"][i],
+            "trainer_tiered": tiered["trainer_tiered"]["launches"][key]}
+
+
 def main(argv) -> int:
     import torch
 
@@ -5594,7 +6244,7 @@ def main(argv) -> int:
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
     if set(argv) - FOUR_CARD_PHASES - DATA_PHASES - SERVING_PHASES \
-            - RL_PHASES:
+            - RL_PHASES - TIERED_PHASES:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     smi = phase_env()
     if argv:
@@ -5655,6 +6305,8 @@ def main(argv) -> int:
             emit({"phase": "data_vit", **phase_data_vit(vit)})
         if RL_PHASES & set(argv):
             rl_phases(smi, RL_PHASES & set(argv))
+        if TIERED_PHASES & set(argv):
+            tiered_phases(smi, TIERED_PHASES & set(argv))
         print(smi, flush=True)
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5856,6 +6508,8 @@ def main(argv) -> int:
     # the RL stack: rollouts and updates on the card, host runner
     # processes; none of K1-K4 on its paths
     rl = rl_phases(smi)
+    # the RLHF loop, weight sync and the tiered checkpoint plane
+    tiered = tiered_phases(smi)
 
     main_case = k1["main_path"]
     row1, bwd = main_case["k1"], main_case["bwd"]
@@ -5922,7 +6576,8 @@ def main(argv) -> int:
                               "disagg": disagg["k1_launches"],
                               "moe_forward": moe_fwd["k1_launches"],
                               **by_path("K1"), **serving(0),
-                              **rl_launches_by_path(rl, 0)},
+                              **rl_launches_by_path(rl, 0),
+                              **tiered_launches_by_path(tiered, 0)},
          "max_abs_err": row1["max_abs_err"], "ms": row1["ms"],
          "plain_ms": row1["plain_ms"], "bound_ms": row1["bound_ms"],
          "bound_by": row1["bound_by"], "library_ms": row1["library_ms"],
@@ -5934,7 +6589,8 @@ def main(argv) -> int:
          "source": source + "flash_bwd.cu", "replaces": replaces + "195",
          "design": bwd["k2_design"], "launches": train["launches"]["K2"],
          "launches_by_path": {**by_path("K2"), **serving(1),
-                              **rl_launches_by_path(rl, 1)},
+                              **rl_launches_by_path(rl, 1),
+                              **tiered_launches_by_path(tiered, 1)},
          "max_abs_err": bwd["dq_max_abs_err"],
          "dq_flipped_vs_exact": bwd["dq_flipped_vs_exact"],
          "ms": bwd["k2_ms"],
@@ -5947,7 +6603,8 @@ def main(argv) -> int:
          "source": source + "flash_bwd.cu", "replaces": replaces + "232",
          "launches": train["launches"]["K3"],
          "launches_by_path": {**by_path("K3"), **serving(2),
-                              **rl_launches_by_path(rl, 2)},
+                              **rl_launches_by_path(rl, 2),
+                              **tiered_launches_by_path(tiered, 2)},
          "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
          "ms": bwd["k3_ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["k3_bound_ms"], "bound_by": bwd["k3_bound_by"],
@@ -5961,7 +6618,8 @@ def main(argv) -> int:
          "replaces": "ray_tpu/experimental/channel/transport.py:285",
          "design": k4["design"], "launches": ring["k4_launches"],
          "launches_by_path": {"ring": ring["k4_launches"], **serving(3),
-                              **health_pings, **rl_launches_by_path(rl, 3)},
+                              **health_pings, **rl_launches_by_path(rl, 3),
+                              **tiered_launches_by_path(tiered, 3)},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],

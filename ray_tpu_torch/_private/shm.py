@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import inspect
 import threading
+from typing import Optional
 from multiprocessing import resource_tracker, shared_memory
 
 # RLock: 3.12's SharedMemory.__init__ calls self.unlink() in its own
@@ -51,3 +52,52 @@ if "track" in inspect.signature(shared_memory.SharedMemory.__init__).parameters:
         return shared_memory.SharedMemory(*args, track=False, **kwargs)
 else:
     open_shm = _UntrackedSharedMemory
+
+
+# -- segments registered in the run's store ------------------------------------
+#
+# A segment whose writer may die before it unlinks (a weight-sync payload,
+# a checkpoint shard held in peer RAM) is registered in the run's
+# key-value store under ``shm/<name>``, with its owner as the value; the
+# train controller sweeps every registered segment at the end of ``fit()``
+# (the store dies with it, and with it every way to find the segment).
+
+_REGISTRY = "shm/"
+
+
+def register_segment(kv, name: str, owner: str = "") -> None:
+    """Record segment ``name`` (owned by ``owner``) in the run store
+    ``kv`` (a no-op without one)."""
+    if kv is not None:
+        kv.put(_REGISTRY + name, owner.encode())
+
+
+def unlink_segment(name: str, kv=None) -> None:
+    """Unlink segment ``name`` if it still exists, and drop its record."""
+    try:
+        seg = open_shm(name=name)
+    except FileNotFoundError:
+        pass
+    else:
+        seg.close()
+        try:
+            seg.unlink()
+        except FileNotFoundError:
+            pass
+    if kv is not None:
+        try:
+            kv.delete(_REGISTRY + name)
+        except Exception:  # noqa: BLE001 — the store may be gone
+            pass
+
+
+def sweep_segments(kv, owner: Optional[str] = None) -> int:
+    """Unlink every segment registered in ``kv`` (only ``owner``'s when
+    given); returns how many records were swept."""
+    n = 0
+    for key in kv.keys(_REGISTRY):
+        if owner is not None and (kv.get(key) or b"").decode() != owner:
+            continue
+        unlink_segment(key[len(_REGISTRY):], kv)
+        n += 1
+    return n

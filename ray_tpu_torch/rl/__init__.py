@@ -8,11 +8,9 @@ with one process per runner in place of an actor), IMPALA/APPO, DQN,
 SAC, BC/MARWIL, CQL, multi-agent PPO and DreamerV3.  Entry points take a
 ``device``: None means the card.
 
-Not ported yet (the next slice): the RLHF loop (``RLHFConfig``,
-``RLHFLoop``, ``RolloutActor``/``RolloutGroup``, ``TrajectoryLedger``)
-and ``weight_sync``'s names (``WeightPublisher``, ``WeightSubscriber``,
-``WeightVersion``, ``WeightSyncError``, ``WeightsStaleError``,
-``NoWeightsPublishedError``).
+The RLHF loop (``RLHFLoop``: rollout processes on the host, the learner
+on the card, live weight sync through ``weight_sync``'s versioned
+publisher and subscribers) runs on ``TorchTrainer``.
 """
 
 from ray_tpu_torch.rl.algorithm import PPO, Algorithm, AlgorithmConfig
@@ -38,7 +36,22 @@ from ray_tpu_torch.rl.multi_agent_ppo import (
     make_multi_agent_rollout_fn,
 )
 from ray_tpu_torch.rl.ppo import PPOConfig, PPOLearner, compute_gae
+from ray_tpu_torch.rl.rlhf import (
+    RLHFConfig,
+    RLHFLoop,
+    RolloutActor,
+    RolloutGroup,
+    TrajectoryLedger,
+)
 from ray_tpu_torch.rl.sac import SAC, SACConfig, SACParams
+from ray_tpu_torch.rl.weight_sync import (
+    NoWeightsPublishedError,
+    WeightPublisher,
+    WeightSubscriber,
+    WeightSyncError,
+    WeightVersion,
+    WeightsStaleError,
+)
 
 __all__ = [
     "APPO", "BC", "CQL", "CQLParams", "DQN", "DQNConfig", "DQNParams",
@@ -47,7 +60,10 @@ __all__ = [
     "ReplayBuffer", "PPO", "SAC", "SACConfig", "SACParams",
     "Algorithm", "AlgorithmConfig", "ActorCriticModule",
     "CartPoleEnv", "EnvRunner", "EnvRunnerGroup", "EnvSpec", "GymVectorEnv",
-    "MultiAgentPPO", "PPOConfig", "PPOLearner", "PursuitTagEnv",
-    "TorchMultiAgentEnv", "TorchVectorEnv", "compute_gae",
+    "MultiAgentPPO", "NoWeightsPublishedError", "PPOConfig", "PPOLearner",
+    "PursuitTagEnv", "RLHFConfig", "RLHFLoop", "RolloutActor",
+    "RolloutGroup", "TorchMultiAgentEnv", "TorchVectorEnv",
+    "TrajectoryLedger", "WeightPublisher", "WeightSubscriber",
+    "WeightSyncError", "WeightVersion", "WeightsStaleError", "compute_gae",
     "make_multi_agent_rollout_fn", "make_env", "register_env", "vtrace",
 ]

@@ -3,7 +3,7 @@
 there).
 
 Both rollout planes (``EnvRunnerGroup`` for gym env runners, and the
-generation group of the RLHF loop once it is ported) settle dead members
+generation group of the RLHF loop, ``rlhf.RolloutGroup``) settle dead members
 the same way: respawn while a bounded budget lasts, past it drop the member
 with a logged count and keep operating at reduced strength.  One
 implementation so a fix to the pattern reaches both planes (the same

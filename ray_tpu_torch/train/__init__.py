@@ -6,6 +6,11 @@ Parity target: ``ray.train`` (v2 control-loop design,
 """
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
+from ray_tpu_torch.train.checkpoint_async import (
+    AsyncCheckpointer,
+    RestoreResult,
+    TieredCheckpoint,
+)
 from ray_tpu_torch.train.checkpoint_manager import latest_committed_checkpoint
 from ray_tpu_torch.train.config import (
     CheckpointConfig,
@@ -41,6 +46,7 @@ from ray_tpu_torch.train.trainer import (
 )
 
 __all__ = [
+    "AsyncCheckpointer", "RestoreResult", "TieredCheckpoint",
     "Checkpoint", "CheckpointConfig", "FailureConfig", "Result", "RunConfig",
     "ScalingConfig", "DefaultFailurePolicy", "ElasticScalingPolicy",
     "FailureDecision", "FailurePolicy", "FixedScalingPolicy", "ResizeDecision",

@@ -69,24 +69,31 @@ class ScalingConfig:
 
 @dataclasses.dataclass
 class CheckpointConfig:
-    """Checkpoint bookkeeping.
+    """Checkpoint bookkeeping and persistence mode.
 
-    mode: ``"sync"`` — the loop reports whole-tree directory checkpoints
-    that the controller copies into storage.  The reference's
-    ``"tiered"`` plane (per-rank shards persisted in the background,
-    peer-RAM replicas) is not ported, and asking for it raises.
+    mode: ``"sync"`` (the loop reports whole-tree directory checkpoints
+    that the controller copies into storage) or ``"tiered"`` (the async
+    sharded plane of ``train.checkpoint_async``: each rank persists only
+    the shards it owns in the background, pushes a copy to a peer's RAM,
+    and the step pays only the host snapshot; the controller starts one
+    ``CheckpointReplicaServer`` process per unit and the restore ladder
+    is local RAM -> peer RAM -> committed disk).
+    peer_replication: in tiered mode, replicate each rank's snapshot to a
+    peer's RAM (the emergency tier a short-deadline drain and a killed
+    worker's restore depend on).
     """
 
     num_to_keep: Optional[int] = None
     checkpoint_score_attribute: Optional[str] = None
     checkpoint_score_order: str = "max"
     mode: str = "sync"
+    peer_replication: bool = True
 
     def __post_init__(self):
-        if self.mode != "sync":
+        if self.mode not in ("sync", "tiered"):
             raise ValueError(
-                f"CheckpointConfig(mode={self.mode!r}): the port has only "
-                "mode='sync' (the tiered checkpoint plane is not ported)")
+                f"CheckpointConfig(mode={self.mode!r}): mode is 'sync' or "
+                "'tiered'")
 
 
 @dataclasses.dataclass

@@ -20,8 +20,15 @@ the running group is QUARANTINED, the controller asks every rank for a
 checkpoint, waits for one (bounded by the quarantine's drain deadline),
 and restarts the group off the unit without charging
 ``FailureConfig.max_failures``.  Groups are placed only on units that
-are not quarantined.  The reference's gang fate-share and checkpoint
-replica-plane branches need its cluster core and are not ported.
+are not quarantined.  Under ``CheckpointConfig(mode="tiered")`` the
+controller owns the checkpoint replica plane (one
+``CheckpointReplicaServer`` process per unit, outside the worker group,
+reused across generations), follows each rank's tiered saves from the
+poll status, and counts a generation acked in peer RAM by every rank as
+the drain's checkpoint; a drain deadline below
+``train_drain_memory_tier_floor_s`` asks for that memory tier.  The
+reference's gang fate-share branch needs its cluster core and is not
+ported.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from typing import Any, Callable, Dict, List, Optional
 from ray_tpu_torch._private import accelerators
 from ray_tpu_torch._private import health_plane
 from ray_tpu_torch._private import kv as kv_mod
+from ray_tpu_torch._private.config import knob
+from ray_tpu_torch._private.shm import sweep_segments
 from ray_tpu_torch._private.net import address_in_use
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.checkpoint_manager import CheckpointManager
@@ -93,6 +102,14 @@ class TrainController:
         )
         if resume_from_checkpoint is not None:
             self.checkpoint_manager.register(resume_from_checkpoint, {})
+        # the tiered plane: replica servers owned HERE, outside the worker
+        # group, so the emergency tier survives the restarts it serves
+        self._tiered_mode = ckpt_cfg.mode == "tiered"
+        self._peer_replication = ckpt_cfg.peer_replication
+        self.replica_plane = None
+        # index -> {"ranks_ram": set, "world": int, "path": str|None,
+        # "registered": bool}, from the poll-time checkpointer status
+        self._tiered: Dict[int, Dict[str, Any]] = {}
         self.kv: Optional[kv_mod.RunKV] = None
         self.metrics_history: List[Dict[str, Any]] = []
         self._ctx = TrainRunContext()
@@ -153,6 +170,10 @@ class TrainController:
             sc = dataclasses.replace(sc, num_workers=decision.num_workers)
             logger.info("train %s: elastic resize to %d workers",
                         self.name, sc.num_workers)
+        if self._tiered_mode:
+            # rank r lands on units[r]: their replica servers start beside
+            # the workers (``_wire_replica_plane`` waits for them)
+            self._replica_plane().start(units[:sc.num_workers])
         # Generation-scoped name: collective groups and report indices from
         # a previous (possibly abruptly killed) group can never alias the
         # new one's.
@@ -171,11 +192,40 @@ class TrainController:
                 self.fn_payload, self.train_loop_config,
                 self.checkpoint_manager.latest, shards, dist_env,
                 mesh_config=sc.mesh_config(),
-                axis_rules=sc.logical_axis_rules)
+                axis_rules=sc.logical_axis_rules,
+                ckpt_planes=self._wire_replica_plane(group))
         except BaseException:
             group.shutdown()
             raise
         return group
+
+    def _replica_plane(self):
+        if self.replica_plane is None:
+            from ray_tpu_torch.util.checkpoint_replica import ReplicaPlane
+
+            self.replica_plane = ReplicaPlane(self.name, kv=self.kv)
+        return self.replica_plane
+
+    def _wire_replica_plane(self, group: WorkerGroup
+                            ) -> Optional[List[Dict[str, Any]]]:
+        """Tiered mode: start a replica server for each unit of this
+        generation that has none, and return each rank's wiring (storage
+        dir, run name, its peer server, every server's name).  Servers
+        are reused across generations; a quarantined unit's server stays
+        (its replicas are host memory, which the quarantine does not
+        touch)."""
+        if not self._tiered_mode:
+            return None
+        plane = self._replica_plane()
+        node_ids = group.worker_node_ids()
+        plane.ensure_for_nodes(node_ids)
+        servers = plane.server_names()
+        peers = plane.peer_assignment(node_ids) if self._peer_replication \
+            else [None] * len(node_ids)
+        return [{"mode": "tiered", "run": self.name,
+                 "storage_dir": self.checkpoint_manager.storage_dir,
+                 "peer": peers[rank], "servers": servers}
+                for rank in range(len(node_ids))]
 
     def _restart_group(self) -> WorkerGroup:
         """Start a replacement group, treating start-time failures as
@@ -279,13 +329,23 @@ class TrainController:
         wait_s = health_plane.DEFAULTS["train_drain_checkpoint_wait_s"]
         deadline = min(rec.get("drain_deadline") or time.time() + wait_s
                        for rec in overlap.values())
+        window = max(0.0, deadline - time.time())
+        # a window too short for the disk persist asks for the memory
+        # tier: the peer-RAM ack is the commit, and the restarted group
+        # restores from the replica plane with zero disk reads
+        tier = "any"
+        if self._tiered_mode and \
+                window < knob("train_drain_memory_tier_floor_s"):
+            tier = "memory"
         logger.warning(
             "train %s: unit(s) %s hosting workers quarantined (%.1fs to "
-            "the drain deadline); requesting an immediate checkpoint and "
-            "restarting off them", self.name, sorted(overlap),
-            max(0.0, deadline - time.time()))
-        pre_ckpts = len(self._ckpt_registered)
-        group.request_checkpoint()
+            "the drain deadline); requesting an immediate %s-tier "
+            "checkpoint and restarting off them", self.name, sorted(overlap),
+            window, tier)
+        pre_ckpts = len(self._ckpt_registered) + self._tiered_durable_count()
+        # the drained units ride along: an emergency replica must not land
+        # on one of them
+        group.request_checkpoint(tier=tier, avoid_nodes=sorted(overlap))
         # a margin before the deadline for the group's teardown
         wait_until = min(deadline - 1.0, time.time() + wait_s)
         while time.time() < wait_until:
@@ -295,12 +355,26 @@ class TrainController:
             # wait must not be torn down and re-run from its checkpoint
             if all(s.finished for s in statuses):
                 return False
-            if len(self._ckpt_registered) > pre_ckpts:
-                break  # the pre-drain checkpoint is registered
+            if len(self._ckpt_registered) + self._tiered_durable_count() \
+                    > pre_ckpts:
+                break  # the pre-drain checkpoint is durable (some tier)
             if any(s.error for s in statuses):
                 break  # restart from what there is
             time.sleep(self.poll_interval_s)
         return True
+
+    def _tiered_durable_count(self) -> int:
+        """Tiered generations durable at ANY tier: registered from disk,
+        or acked in peer RAM by every rank (the ``memory``-tier
+        commit)."""
+        n = 0
+        for info in self._tiered.values():
+            if info.get("registered"):
+                n += 1
+            elif info.get("world") and \
+                    len(info["ranks_ram"]) >= info["world"]:
+                n += 1
+        return n
 
     # -- control loop ------------------------------------------------------
     def run(self) -> Result:
@@ -365,8 +439,19 @@ class TrainController:
         finally:
             group.shutdown()
             self._shutdown_splits()
+            if self.replica_plane is not None:
+                # the RAM tier lives as long as the run: disk commits
+                # survive it, the replicas do not
+                self.replica_plane.shutdown()
             self._publish_status(
                 group, "FAILED" if error is not None else "FINISHED")
+            # segments a worker registered (weight-sync payloads) go with
+            # the store, the only way to find them
+            try:
+                sweep_segments(self.kv)
+            except Exception:  # noqa: BLE001 — best effort at the end
+                logger.warning("train %s: segment sweep failed", self.name,
+                               exc_info=True)
 
         return Result(
             metrics=self.metrics_history[-1] if self.metrics_history else None,
@@ -391,6 +476,8 @@ class TrainController:
                 key = (self._generation, base + off)
                 self._step_buffer.setdefault(key, {})[s.rank] = row
             self._rank_row_counts[s.rank] = base + len(s.results)
+            if s.ckpt:
+                self._note_tiered_status(s.rank, s.ckpt)
 
         for key in sorted(self._step_buffer):
             rows = self._step_buffer[key]
@@ -412,3 +499,27 @@ class TrainController:
                         break
             if len(rows) == len(statuses) and key in self._emitted:
                 del self._step_buffer[key]
+
+    def _note_tiered_status(self, rank: int, st: Dict[str, Any]) -> None:
+        """Fold one rank's poll-time checkpointer status into the
+        per-index durability record.  A committed sharded dir is adopted
+        into the CheckpointManager in place (it already lives in the
+        storage dir), which gives it top-K eviction and
+        ``Result.checkpoint`` visibility."""
+        idx = st.get("index")
+        if idx is None:
+            return
+        info = self._tiered.setdefault(
+            idx, {"ranks_ram": set(), "world": st.get("world"),
+                  "path": None, "registered": False})
+        if st.get("world"):
+            info["world"] = st["world"]
+        if st.get("ram_acked"):
+            info["ranks_ram"].add(rank)
+        path = st.get("committed_path")
+        if path and not info["registered"] and os.path.isdir(path):
+            metrics = self.metrics_history[-1] if self.metrics_history \
+                else {}
+            self.checkpoint_manager.register(Checkpoint(path), metrics)
+            info["registered"] = True
+            info["path"] = path

@@ -6,11 +6,14 @@ Parity: ``ray.train.report`` / ``ray.train.get_context``
 worker process; ``report()`` enqueues (metrics, checkpoint) rows the
 controller polls over the worker's pipe (``train/worker_group.py``).
 
-The reference's tiered checkpoint plane (``checkpointer()``,
-``restore_checkpoint()``) is not ported: both raise, and checkpoints are
-the sync mode's directories.  A drain notice (the controller's, when the
-health plane quarantines a card of the group) asks the loop for a
-checkpoint at its next step boundary: ``drain_requested()``.
+Checkpoints are the sync mode's directories, or under
+``CheckpointConfig(mode="tiered")`` the async sharded plane
+(``checkpointer()``, an ``AsyncCheckpointer`` wired to the run's storage
+and its peer replica server; ``restore_checkpoint()`` walks the ladder
+local RAM -> peer RAM -> committed disk).  A drain notice (the
+controller's, when the health plane quarantines a card of the group) asks
+the loop for a checkpoint at its next step boundary: ``drain_requested()``,
+at the tier ``drain_checkpoint_tier()`` names.
 """
 
 from __future__ import annotations
@@ -199,6 +202,7 @@ class _TrainSession:
         axis_rules: Optional[Dict[str, Any]] = None,
         device: str = "cpu",
         local_rank: Optional[int] = None,
+        ckpt_plane: Optional[Dict[str, Any]] = None,
     ):
         self.rank = rank
         self.world_size = world_size
@@ -221,8 +225,15 @@ class _TrainSession:
         self._ledger: Optional[StepLedger] = None
         # set by the controller when a card (or slot) of the group is
         # quarantined: the loop should checkpoint at its next step
-        # boundary; cleared when a checkpoint is reported
+        # boundary; cleared when a checkpoint is reported.  The tier is
+        # "memory" when the drain deadline is below disk-write time, and
+        # the avoided units are the ones the drain covers
         self.checkpoint_requested = threading.Event()
+        self.checkpoint_request_tier = "any"
+        self.checkpoint_request_avoid: set = set()
+        # the tiered plane's wiring from the controller (None: sync mode)
+        self.ckpt_plane = ckpt_plane
+        self._checkpointer = None  # the AsyncCheckpointer, built lazily
 
 
 def _start_session(**kw) -> _TrainSession:
@@ -243,13 +254,21 @@ def _get_session() -> _TrainSession:
 
 
 def report(
-    metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None
+    metrics: Dict[str, Any], checkpoint: Optional[Any] = None
 ) -> None:
-    """Report metrics (and optionally a directory :class:`Checkpoint`) to
-    the controller."""
+    """Report metrics (and optionally a checkpoint) to the controller.
+
+    ``checkpoint`` is a directory :class:`Checkpoint` or a
+    ``checkpoint_async.TieredCheckpoint`` handle from
+    ``get_context().checkpointer().save(...)``: its row carries the
+    generation index, and the controller follows each tier's progress
+    from the poll-time checkpointer status (the background persist ends
+    after this call returns)."""
     s = _get_session()
     if checkpoint is not None:
         s.checkpoint_requested.clear()
+        s.checkpoint_request_tier = "any"
+        s.checkpoint_request_avoid = set()
     s.results.put({"metrics": dict(metrics), "checkpoint": checkpoint})
 
 
@@ -415,15 +434,78 @@ class TrainContext:
         group.  Loops that checkpoint every step can ignore this."""
         return _get_session().checkpoint_requested.is_set()
 
+    def drain_checkpoint_tier(self) -> str:
+        """The durability tier the pending drain checkpoint must reach:
+        ``"any"`` (let the disk tier land) or ``"memory"`` (the drain
+        deadline is below disk-write time: the peer-RAM ack is the
+        commit; call ``checkpointer().commit_ram()`` and report)."""
+        return _get_session().checkpoint_request_tier
+
+    def checkpoint_mode(self) -> str:
+        """``"tiered"`` when the controller wired the async sharded plane
+        into this session (``CheckpointConfig(mode="tiered")``), else
+        ``"sync"``."""
+        return "tiered" if _get_session().ckpt_plane is not None else "sync"
+
     def checkpointer(self, writers: Optional[int] = None):
-        raise NotImplementedError(
-            "the tiered checkpoint plane (AsyncCheckpointer) is not ported; "
-            "report Checkpoint.from_state_dict(...) instead")
+        """This rank's :class:`~ray_tpu_torch.train.checkpoint_async.
+        AsyncCheckpointer` (one per session, wired to the run's storage
+        dir, its peer replica server and this session's step ledger).
+        ``writers`` sets the writer group's size when fewer ranks than
+        the world save (``writers=1``: a sole-writer generation, as the
+        RLHF loop's rank 0).  Usable in sync mode too, with the local-RAM
+        tier alone."""
+        s = _get_session()
+        if s._checkpointer is None:
+            from ray_tpu_torch.train.checkpoint_async import \
+                AsyncCheckpointer
+
+            plane = s.ckpt_plane or {}
+            s._checkpointer = AsyncCheckpointer(
+                storage_dir=plane.get("storage_dir"),
+                run=plane.get("run", s.group_name),
+                rank=s.rank,
+                world=writers if writers is not None else s.world_size,
+                peer_name=plane.get("peer"),
+                server_names=plane.get("servers", ()),
+                ledger=self.step_ledger(),
+                # a memory-tier drain request preempts save()'s disk
+                # backpressure: the emergency checkpoint commits at the
+                # RAM tier inside the window even behind a slow persist
+                preempt_ram=lambda: (
+                    s.checkpoint_requested.is_set()
+                    and s.checkpoint_request_tier == "memory"),
+                drain_avoid=lambda: s.checkpoint_request_avoid,
+            )
+        elif writers is not None:
+            # built earlier (a restore) with the world's size: the writer
+            # group is the caller's
+            s._checkpointer.world = writers
+        return s._checkpointer
 
     def restore_checkpoint(self):
-        raise NotImplementedError(
-            "the tiered checkpoint plane is not ported; load "
-            "get_checkpoint().to_state_dict(target) instead")
+        """Restore the newest complete checkpoint for this mode: tiered
+        walks the per-shard ladder (local RAM -> peer RAM -> committed
+        disk) and reassembles the whole tree whatever world wrote it;
+        sync loads the controller's latest directory checkpoint.  Returns
+        a ``checkpoint_async.RestoreResult`` (``.tree``, ``.meta``,
+        ``.index``, ``.tier``), or None before any checkpoint exists.
+        The tree's tensors are on the host."""
+        s = _get_session()
+        if s.ckpt_plane is not None:
+            return self.checkpointer().restore()
+        ck = s.latest_checkpoint
+        if ck is None:
+            return None
+        import re
+
+        from ray_tpu_torch.train.checkpoint_async import RestoreResult
+
+        m = re.search(r"checkpoint_(\d+)$", ck.path)
+        return RestoreResult(
+            tree=ck.to_state_dict(), meta={},
+            index=int(m.group(1)) if m else 0, world=s.world_size,
+            tier_by_rank={}, disk_reads=1, path=ck.path)
 
     def collective_group(self, backend: str = "tcp",
                          timeout_s: Optional[float] = None) -> str:

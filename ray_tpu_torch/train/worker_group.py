@@ -42,6 +42,9 @@ class WorkerStatus:
     error: Optional[str]
     results: List[Dict[str, Any]]  # drained (metrics, checkpoint) rows
     dead: bool = False  # the process is gone or does not answer
+    # the tiered status of this rank's AsyncCheckpointer's last save (None
+    # in sync mode or before a save)
+    ckpt: Optional[Dict[str, Any]] = None
 
 
 class TrainWorker:
@@ -89,6 +92,7 @@ class TrainWorker:
         mesh_config: Any = None,
         axis_rules: Any = None,
         device: str = "cpu",
+        ckpt_plane: Optional[Dict[str, Any]] = None,
     ) -> None:
         from ray_tpu_torch.train import session as session_mod
 
@@ -104,6 +108,7 @@ class TrainWorker:
             axis_rules=axis_rules,
             device=device,
             local_rank=int(os.environ.get("LOCAL_RANK", rank)),
+            ckpt_plane=ckpt_plane,
         )
         sess.dataset_shard = dataset_shard
         self._session = sess
@@ -129,12 +134,19 @@ class TrainWorker:
                                         name="train-loop")
         self._thread.start()
 
-    def request_checkpoint(self) -> bool:
+    def request_checkpoint(self, tier: str = "any",
+                           avoid_nodes: Optional[List[str]] = None) -> bool:
         """Drain-notice leg: ask the loop to checkpoint at its next step
-        boundary (``get_context().drain_requested()`` flips true)."""
+        boundary (``get_context().drain_requested()`` flips true).
+        ``tier="memory"``: the deadline is too short for the disk tier,
+        the loop should ``commit_ram()`` and report once the peer acks.
+        ``avoid_nodes``: the drained units, where no emergency replica
+        may land."""
         sess = self._session
         if sess is None:
             return False
+        sess.checkpoint_request_avoid = set(avoid_nodes or ())
+        sess.checkpoint_request_tier = tier
         sess.checkpoint_requested.set()
         return True
 
@@ -152,19 +164,36 @@ class TrainWorker:
                 rows.append(sess.results.get_nowait())
             except Exception:
                 break
-        # checkpoints travel as paths; the controller re-wraps them
-        out_rows = [{"metrics": r["metrics"],
-                     "checkpoint_path": (r["checkpoint"].path
-                                         if r["checkpoint"] is not None
-                                         else None)} for r in rows]
+        # checkpoints travel as paths; the controller re-wraps them.  A
+        # tiered handle travels as its generation index: its durability
+        # rides the poll's ``ckpt`` status, since the background persist
+        # usually ends after the row drains
+        out_rows = []
+        for r in rows:
+            ck = r["checkpoint"]
+            row = {"metrics": r["metrics"], "checkpoint_path": None}
+            if ck is not None and hasattr(ck, "ram_acked"):
+                row["checkpoint_index"] = ck.index
+                row["checkpoint_path"] = ck.committed_path
+            elif ck is not None:
+                row["checkpoint_path"] = ck.path
+            out_rows.append(row)
         err = None
         if sess.error is not None:
             err = sess.error_tb or repr(sess.error)
+        ckpt = None
+        last = sess._checkpointer.last if sess._checkpointer else None
+        if last is not None:
+            ckpt = {"index": last.index, "tier": last.tier,
+                    "ram_acked": last.ram_acked,
+                    "committed_path": last.committed_path,
+                    "world": last.world}
         return {
             "running": self._thread is not None and self._thread.is_alive(),
             "finished": finished,
             "error": err,
             "results": out_rows,
+            "ckpt": ckpt,
         }
 
     def shutdown(self) -> bool:
@@ -354,11 +383,13 @@ class WorkerGroup:
         """The unit each rank is bound to, by rank."""
         return [m["node_id"] for m in self.worker_metadata]
 
-    def request_checkpoint(self) -> None:
+    def request_checkpoint(self, tier: str = "any",
+                           avoid_nodes: Optional[List[str]] = None) -> None:
         """Best-effort fan-out of the drain notice to every rank."""
         for rank in range(len(self.workers)):
             try:
-                self.call(rank, "request_checkpoint", timeout=5.0)
+                self.call(rank, "request_checkpoint", tier,
+                          list(avoid_nodes or ()), timeout=5.0)
             except (WorkerDied, RuntimeError):
                 pass
 
@@ -371,6 +402,7 @@ class WorkerGroup:
         dist_env: Optional[List[Dict[str, str]]] = None,
         mesh_config: Any = None,
         axis_rules: Any = None,
+        ckpt_planes: Optional[List[Dict[str, Any]]] = None,
     ) -> None:
         n = len(self.workers)
         device = "cuda" if self.scaling_config.use_gpu else "cpu"
@@ -382,7 +414,8 @@ class WorkerGroup:
             self.call(rank, "start_loop", fn_payload, config, rank, n,
                       self.group_name,
                       checkpoint.path if checkpoint else None, shard,
-                      mesh_config, axis_rules, device)
+                      mesh_config, axis_rules, device,
+                      ckpt_planes[rank] if ckpt_planes else None)
 
     def poll(self, timeout: float = 30.0) -> List[WorkerStatus]:
         """Poll every worker; a dead or silent process yields a
@@ -394,7 +427,7 @@ class WorkerGroup:
                 statuses.append(WorkerStatus(
                     rank=rank, running=st["running"],
                     finished=st["finished"], error=st["error"],
-                    results=st["results"]))
+                    results=st["results"], ckpt=st.get("ckpt")))
             except (WorkerDied, RuntimeError) as e:
                 statuses.append(WorkerStatus(
                     rank=rank, running=False, finished=False,
@@ -422,3 +455,28 @@ class WorkerGroup:
             conn.close()
         self.workers = []
         self._started = False
+
+
+class allow_children:
+    """Let this process start child processes while the block runs.
+
+    A train worker is a daemonic process (its controller's exit takes it
+    down), and ``multiprocessing`` refuses children to a daemonic
+    process.  A loop that starts processes of its own (the RLHF loop's
+    rollout processes) starts them daemonic inside this block: they die
+    with the worker's normal exit, and their pipe to it closes when it is
+    killed, which ends them too (``serve_commands`` returns on EOF)."""
+
+    def __enter__(self):
+        import multiprocessing
+
+        self._proc = multiprocessing.current_process()
+        self._was = self._proc.daemon
+        if self._was:
+            self._proc.daemon = False
+        return self
+
+    def __exit__(self, *exc):
+        if self._was:
+            self._proc.daemon = True
+        return False

@@ -42,7 +42,20 @@ site                        guards
 ``collective.rendezvous``   the epoch/leader KV legs of group rendezvous
                             (``collective_group/torch_group.py``)
 ``train.checkpoint.commit`` between checkpoint staging and rename-commit
-                            (``train/checkpoint_manager.py``)
+                            (``train/checkpoint_manager.py``,
+                            ``train/checkpoint_async.py``)
+``train.checkpoint.persist_async``  the background shard write of a tiered
+                            save (``train/checkpoint_async.py``)
+``train.checkpoint.peer_push``  the peer-RAM replica push, the emergency
+                            tier (``util/checkpoint_replica.py``)
+``train.checkpoint.restore``  entry of the tiered restore ladder
+                            (``train/checkpoint_async.py``)
+``rl.weight_sync.publish``  between a weight payload's segment and its
+                            version's commit (``rl/weight_sync.py``)
+``rl.rollout.sample``       a rollout process's sample edge (the RLHF
+                            loop, ``rl/rlhf.py``)
+``rl.reward.score``         the RLHF reward-scoring leg, before any batch
+                            is mutated (``rl/rlhf.py``)
 ``health.probe``            each iteration of the health probe's timed
                             matmul loop, and the monitor's dispatch of a
                             probe (``_private/health_plane.py``)

@@ -793,3 +793,115 @@ def test_rl_families_update_match_cpu_on_card():
                         "marwil", "dreamer"}
     assert all(f["finite"] for f in out.values())
     assert all(f["k1_k4_launches"] == [0, 0, 0, 0] for f in out.values())
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_tree_through_snapshot_and_reassemble():
+    """A bf16 tree on the card through ``snapshot_shards`` (one page-locked
+    blob per writer) and ``reassemble``: every leaf bit-equal, at world 1
+    and split over two writers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the snapshot's D2H into "
+                    "page-locked memory")
+    from ray_tpu_torch.train import checkpoint_async as ca
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(37, 64, generator=gen, device="cuda").bfloat16(),
+            "norm": torch.randn(64, generator=gen, device="cuda").bfloat16(),
+            "step": 5}
+    for world in (1, 2):
+        blobs = {r: ca.snapshot_shards(tree, r, world, run="g", index=1)
+                 for r in range(world)}
+        assert all(b.is_pinned() for b in blobs.values())
+        out, _ = ca.reassemble(blobs)
+        for k in ("w", "norm"):
+            assert out[k].dtype == torch.bfloat16
+            assert torch.equal(out[k].view(torch.int16),
+                               tree[k].cpu().view(torch.int16))
+        assert out["step"] == 5
+
+
+@pytest.mark.gpu
+def test_params_digest_of_a_cuda_tree_equals_its_cpu_copy():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tpu_torch.rl.weight_sync import params_digest
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tree = {"a": torch.randn(300, 17, generator=gen,
+                             device="cuda").bfloat16(),
+            "b": [torch.randn(5, generator=gen, device="cuda")]}
+    host = {"a": tree["a"].cpu(), "b": [tree["b"][0].cpu()]}
+    assert params_digest(tree, 3, 1) == params_digest(host, 3, 1)
+
+
+@pytest.mark.gpu
+def test_save_is_not_reached_by_the_next_in_place_step():
+    """``AsyncCheckpointer.save`` returns a finished host copy: an in-place
+    optimizer step on the card right after it (queued on the same
+    stream, no synchronize between) does not reach the snapshot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tpu_torch.train.checkpoint_async import (AsyncCheckpointer,
+                                                      reassemble)
+
+    from ray_tpu_torch.train import checkpoint_async as ca
+
+    p = torch.zeros(1 << 22, device="cuda")
+    ck = AsyncCheckpointer(None, "inplace", 0, 1, publish_status=False)
+    ptrs = []
+    try:
+        # five saves: the fourth and fifth into reused page-locked buffers
+        for i in range(5):
+            p.fill_(float(i))
+            h = ck.save({"p": p})
+            ptrs.append(ca._local_get("inplace", h.index, 0).data_ptr())
+            big = torch.randn(4096, 4096, device="cuda")
+            for _ in range(4):  # keep the stream busy, then write in place
+                big = big @ big
+            p.add_(100.0)
+            out, _ = reassemble({0: ca._local_get("inplace", h.index, 0)})
+            assert torch.equal(out["p"], torch.full_like(out["p"],
+                                                         float(i)))
+        torch.cuda.synchronize()
+        assert float(p[0]) == 104.0
+        assert ptrs[3:] == ptrs[:2]
+    finally:
+        ck.close()
+
+
+@pytest.mark.gpu
+def test_weight_publish_from_the_card_into_registered_slots():
+    """A bf16 tree on the card published five times (``keep=2``: the
+    fourth and fifth into reused, page-locked payload slots) lands in a
+    CPU subscriber bit-equal each time, its digest equal to the card's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the DMA into a registered slot")
+    from ray_tpu_torch._private import kv as kv_mod
+    from ray_tpu_torch.rl.weight_sync import (WeightPublisher,
+                                              WeightSubscriber,
+                                              params_digest)
+
+    store = kv_mod.host()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tree = {"w": torch.randn(513, 64, generator=gen,
+                             device="cuda").bfloat16(),
+            "b": [torch.randn(7, generator=gen, device="cuda")]}
+    pub = WeightPublisher("gpu-slots", resume=False, keep=2, kv=store)
+    sub = WeightSubscriber("gpu-slots", device="cpu", kv=store)
+    try:
+        for i in range(5):
+            with torch.no_grad():
+                tree["w"].add_(1.0)
+            ver = pub.publish(tree)
+            assert pub.last_publish["new_slot"] == (i < 3)
+            assert sub.poll(timeout_s=5.0)
+            got, v = sub.current()
+            assert v == ver
+            assert torch.equal(got["w"].view(torch.int16),
+                               tree["w"].cpu().view(torch.int16))
+            assert torch.equal(got["b"][0], tree["b"][0].cpu())
+            assert params_digest(got, v.version, v.epoch) == \
+                params_digest(tree, v.version, v.epoch)
+    finally:
+        pub.close()

@@ -105,7 +105,11 @@ def test_import_leaves_jax_and_reference_unloaded():
         "ray_tpu_torch.serve._wire, ray_tpu_torch.serve.replica, "
         "ray_tpu_torch.serve.controller, ray_tpu_torch.serve.router, "
         "ray_tpu_torch.serve.proxy, ray_tpu_torch.llm.serving, "
-        "ray_tpu_torch.llm.batch\n"
+        "ray_tpu_torch.llm.batch, ray_tpu_torch._private.config, "
+        "ray_tpu_torch._private.resilience, "
+        "ray_tpu_torch.train.checkpoint_async, "
+        "ray_tpu_torch.util.checkpoint_replica, "
+        "ray_tpu_torch.rl.weight_sync, ray_tpu_torch.rl.rlhf\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas', 'aiohttp'))\n"
         "print(bad)\n"
@@ -143,7 +147,8 @@ def test_port_lints_clean():
 
 RL_MODULES = ("_respawn", "env", "models", "ppo", "env_runner", "algorithm",
               "impala", "dqn", "sac", "bc", "cql", "multi_agent_env",
-              "multi_agent_ppo", "dreamer", "convert", "__init__")
+              "multi_agent_ppo", "dreamer", "convert", "weight_sync", "rlhf",
+              "__init__")
 
 
 def test_rl_sources_are_covered():
@@ -173,3 +178,16 @@ def test_rl_import_leaves_jax_optax_and_gymnasium_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_tiered_plane_sources_are_covered():
+    """The tiered checkpoint plane, the weight sync and the RLHF loop are
+    among the sources checked for jax, ``ray_tpu``, pyarrow, pandas and
+    aiohttp imports (and linted by ``test_port_lints_clean``)."""
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    want = {"ray_tpu_torch/train/checkpoint_async.py",
+            "ray_tpu_torch/util/checkpoint_replica.py",
+            "ray_tpu_torch/_private/resilience.py",
+            "ray_tpu_torch/_private/config.py",
+            "ray_tpu_torch/rl/weight_sync.py", "ray_tpu_torch/rl/rlhf.py"}
+    assert want <= rel, sorted(want - rel)

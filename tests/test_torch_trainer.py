@@ -175,8 +175,13 @@ def test_bad_mesh_preset_fails_at_construction():
 
 
 def test_tiered_checkpoints_are_refused():
-    with pytest.raises(ValueError, match="mode='sync'"):
-        train.CheckpointConfig(mode="tiered")
+    """A checkpoint mode other than 'sync' or 'tiered' is refused at
+    construction; 'tiered' itself is accepted, with peer replication on
+    by default as in the reference."""
+    with pytest.raises(ValueError, match="'sync' or 'tiered'"):
+        train.CheckpointConfig(mode="async")
+    cfg = train.CheckpointConfig(mode="tiered")
+    assert cfg.mode == "tiered" and cfg.peer_replication
 
 
 def test_session_api_outside_a_loop_raises():
