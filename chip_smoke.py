@@ -14,8 +14,10 @@ card the data-plane phases run alone the same way: ``data_trainer``
 runs ``train``, ``trainer`` and ``data_trainer``, ``data_vit`` runs
 ``vit_train`` and ``data_vit``; so do the serving front's:
 ``llm_server``, ``llm_disagg`` (after ``llm_server``) and
-``llm_batch``; and the RL stack's: ``rl_ppo``, ``rl_runners``,
-``rl_multi_agent`` and ``rl_families``.)
+``llm_batch``; the RL stack's: ``rl_ppo``, ``rl_runners``,
+``rl_multi_agent`` and ``rl_families``; and the compiled-graph DAG's:
+``dag_forward`` (after ``forward``) and ``dag_pipeline`` (after
+``train``).  With four cards ``dag4`` runs alone too.)
 
 Phases, each printing one JSON line:
 
@@ -78,6 +80,19 @@ Phases, each printing one JSON line:
    card after it.
 6. ``forward``: ``llama_apply`` at full Llama-2-7B width and depth (bf16
    weights from a seed, b=1, s=2048); K1 must launch once per layer.
+6b. ``dag_forward``: the same forward as a compiled DAG
+   (``ray_tpu_torch.dag``) of two stage processes on the card
+   (``ForwardStage`` actors: 16 layers each, each drawing only its half
+   of the weights from the same seed), ``inp -> stage0.forward ->
+   stage1.forward`` over 32 MiB channels; one warm-up, then eight
+   executions with up to two in flight, and one alone.  The last
+   position's logits and every argmax token must equal this process's
+   ``llama_apply`` (bit-equal expected; a miss within K1's bf16
+   tolerance), every edge must negotiate the device tier with no
+   degraded frame, and K1 must launch 16 times per stage per execution,
+   counted in the stage processes.  It prints the wall per execution
+   beside the one-process forward, the channel wait per edge, the
+   stages' start-up, build and memory.
 7. ``serve``: ``LLMEngine`` on the same model answers five ~200-token
    requests, two sharing a 64-token prefix (greedy, 32 new tokens); one
    decode window is profiled (busy ms as the union over streams, idle
@@ -156,6 +171,19 @@ Phases, each printing one JSON line:
    bf16 activations, ``save_attn``) takes two warm-up and three timed
    steps on b=1, s=2048 random tokens; K1, K2 and K3 must each launch
    once per layer per step, and loss and grad norm must be finite.
+10a. ``dag_pipeline``: the ``train`` phase's model (16 layers, fp32
+   params, ``save_attn``) as two ``TrainStage`` processes of 8 layers
+   under ``PipelineRunner(transport="channels")`` and the 1F1B schedule,
+   four microbatches of one row.  One process first accumulates
+   ``llama_loss``'s backward over the same microbatches from the same
+   weights; after a warm-up run, every grad leaf of each stage must equal
+   its slice bit for bit (else be reported and lie within ``BWD_TOL``),
+   each stage must run its ops in ``build_1f1b_schedule(2, 4)`` order, K1,
+   K2 and K3 must launch 32 times in each stage process and K4 never,
+   and both edges must be on the device tier.  It prints the run's wall
+   beside four chained ``train`` steps, the bubble beside the analytic
+   one, each stage's busy and wait, and the memory of the reference and
+   of each stage.
 10b. ``mesh``: the ``train`` phase's step through the parallel layer: a
    world-1 NCCL process group, ``create_mesh(MESH_PRESETS["fsdp"])`` and
    ``make_llama_trainer(cfg, mesh)`` at the same width, depth, policy,
@@ -263,7 +291,7 @@ Phases, each printing one JSON line:
    respawned.  ``rl_multi_agent``: PursuitTag, 512 envs x 128 steps,
    independent learners that must start equal and diverge.
    ``rl_families``: DQN, SAC, IMPALA, APPO, CQL, BC, MARWIL and
-   DreamerV3 at their reference defaults, three iterations each, losses
+   DreamerV3 at their reference defaults, two iterations each, losses
    finite, one update against the CPU (Dreamer: the world-model loss and
    update with the same latent noise).
 16. The RLHF loop, weight sync and the tiered checkpoint plane
@@ -285,19 +313,28 @@ Phases, each printing one JSON line:
    reused payload slots; each version must be adopted with its digest
    matching and every leaf's sha256 equal to the card's.  ``trainer_tiered``: ``TorchTrainer`` with one worker on
    the card, ``CheckpointConfig(mode="tiered")`` and one restart
-   allowed, the ``trainer`` phase's step at 2 layers (fp32 params, both
-   AdamW moments: 8.0 GB per generation, after a host-memory reckoning);
+   allowed, the ``trainer`` phase's step at 1 layer (fp32 params, both
+   AdamW moments: 5.6 GB per generation, after a host-memory reckoning);
    each of 7 steps saves through ``ctx.checkpointer()``, the first
    attempt raises at step 3 after its loss, and the restarted worker
    must restore from peer RAM with 0 disk reads, every leaf equal to the
-   step-2 save's sha256, step 3's loss bit-equal, K1 = K2 = K3 = 2 per
+   step-2 save's sha256, step 3's loss bit-equal, K1 = K2 = K3 = 1 per
    step, and its fourth save in the first's snapshot buffer.
+17. ``dag4`` (only with four or more cards; else a line says so): four
+   ``DPStage`` actors, one card each, take three data-parallel steps of a
+   2-layer Llama-2-7B-width model as one compiled DAG: each a local
+   gradient of its own batch, ``allreduce.bind(..., backend="nccl")``
+   overlapped with independent compute, then SGD.  The replicas' params
+   must be bit-identical after each step, and at step 0 the allreduced
+   gradient must lie within the fp32 bound of the four local gradients
+   summed in one process.
 
 Then the ``kernels`` line (every ported kernel with its launches on its
 main path: K1, K2 and K3 in ``train``, K4 in ``ring``; the launches of
-every path that runs it, the trainer paths' counted in their workers,
+every path that runs it, the DAG paths' counted in their stage
+processes, the trainer paths' counted in their workers,
 0 on the serving and the RL paths (the RL paths' by the profiler),
-K1-K3 2 per step on ``trainer_tiered`` and 0 on ``rlhf`` (in its
+K1-K3 1 per step on ``trainer_tiered`` and 0 on ``rlhf`` (in its
 worker) and ``weight_sync_7b``, and K1-K3 at
 Mixtral's attention shape), the
 ``nvidia-smi`` line and, last, the result line
@@ -381,7 +418,20 @@ SERVE_MESH4_TIMEOUT_S = 600
 # the four-card phases a run may name alone (``python3 chip_smoke.py
 # serve_mesh4 mesh4 trainer4 health4``); trainer4 runs mesh4 first, whose
 # first loss it is held to
-FOUR_CARD_PHASES = {"serve_mesh4", "mesh4", "trainer4", "health4"}
+FOUR_CARD_PHASES = {"serve_mesh4", "mesh4", "trainer4", "health4", "dag4"}
+# the compiled-graph DAG's phases: two stage processes on one card
+# (dag_forward: 16 + 16 layers of Llama-2-7B in bf16; dag_pipeline: the
+# train phase's 16 layers as 8 + 8 under 1F1B), frames of one 16 MiB
+# activation and its tokens, executions and microbatches; dag4's data-
+# parallel model (2 layers) and steps
+DAG_PHASES = {"dag_forward", "dag_pipeline"}
+DAG_BUFFER_BYTES = 32 << 20
+DAG_FORWARD_EXECS = 8
+DAG_INFLIGHT = 2
+DAG_MICROBATCHES = 4
+DAG4_LAYERS = 2
+DAG4_STEPS = 3
+DIGEST_CHUNK = 1 << 26
 # the data-plane phases a run may name alone too (``python3 chip_smoke.py
 # data_trainer data_vit``): data_trainer runs train and trainer first,
 # data_vit runs vit_train first, the phases each is held to
@@ -411,7 +461,7 @@ RL_PHASES = {"rl_ppo", "rl_runners", "rl_multi_agent", "rl_families"}
 RL_PPO_ENVS, RL_FRAGMENT, RL_PPO_ITERS = 1024, 128, 20
 RL_RUNNERS, RL_RUNNER_ENVS, RL_RUNNER_ITERS = 4, 32, 5
 RL_MA_ENVS, RL_MA_ITERS = 512, 20
-RL_FAMILY_ITERS = 3
+RL_FAMILY_ITERS = 2
 RL_PARAMS_ATOL, RL_GAE_ATOL, RL_DREAMER_LOSS_RTOL = 1e-4, 1e-5, 1e-5
 # the RLHF loop, weight sync and the tiered checkpoint plane
 TIERED_PHASES = {"rlhf", "trainer_tiered"}
@@ -422,7 +472,7 @@ RLHF_LOSS_ATOL, RLHF_PARAMS_ATOL = 1e-6, 1e-4
 WS7B_LAYERS, WS7B_VERSIONS = 2, 5
 # seven steps: the restarted worker saves four times, the fourth into the
 # first's snapshot buffer
-TIERED_LAYERS, TIERED_STEPS, TIERED_FAIL_AT = 2, 7, 3
+TIERED_LAYERS, TIERED_STEPS, TIERED_FAIL_AT = 1, 7, 3
 # the data_vit phase's page-locked H2D copy on the H100 80GB HBM3 at
 # 700 W: 154 MB in 2.929 ms
 PINNED_COPY_GBPS = 154.14e6 / 2.929e-3 / 1e9
@@ -1228,12 +1278,19 @@ def k4_peer_ring():
 def tensor_digest(t) -> int:
     """A digest of a tensor's bytes, computed where the tensor lies: the
     sum of its 16-bit words, each times an odd weight that depends on its
-    position, in int64 arithmetic that wraps."""
+    position, in int64 arithmetic that wraps.  Taken in chunks of
+    ``DIGEST_CHUNK`` words, so a leaf of gigabytes needs no int64 copy of
+    its own size."""
     import torch
 
-    words = t.contiguous().view(torch.int16).reshape(-1).to(torch.int64)
-    weight = torch.arange(words.numel(), device=words.device) * 2 + 1
-    return int((words * weight).sum())
+    words = t.detach().contiguous().view(torch.int16).reshape(-1)
+    total = 0
+    for start in range(0, words.numel(), DIGEST_CHUNK):
+        w = words[start:start + DIGEST_CHUNK].to(torch.int64)
+        weight = torch.arange(start, start + w.numel(),
+                              device=w.device) * 2 + 1
+        total += int((w * weight).sum())
+    return (total + 2 ** 63) % 2 ** 64 - 2 ** 63
 
 
 def channel_reader(forward, back, writer_info, frames, device):
@@ -2082,6 +2139,808 @@ def phase_forward(cfg, params, device="cuda"):
 
 def _agree(a, b) -> float:
     return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
+# ---------------------------------------------------------------------------
+# The compiled-graph DAG (dag_forward, dag_pipeline, dag4): Llama stages,
+# each in a process actor of its own (ray_tpu_torch.actor)
+# ---------------------------------------------------------------------------
+
+
+def tree_items(tree, prefix=""):
+    """``(path, leaf)`` of a params tree in its insertion order, paths
+    joined by "/"."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def stage_params(cfg, lo, hi, *, seed=0, params=None, device=None):
+    """Stage ``[lo, hi)`` of a Llama's params: layers ``lo..hi-1``, the
+    embedding with layer 0 and the final norm and head with the last.
+    From ``params`` (a whole tree, each piece copied) or drawn from
+    ``seed`` exactly as ``llama_init`` draws the whole tree, leaf by leaf:
+    a stacked leaf is drawn whole, its slice kept and the rest dropped at
+    once, so the process never holds more than its stage and one whole
+    leaf."""
+    import torch
+
+    from ray_tpu_torch._device import resolve_device
+
+    if cfg.tie_embeddings:
+        raise ValueError("a stage split of tied embeddings needs the table "
+                         "on the first and the last stage")
+    dev = resolve_device(device)
+    first, last = lo == 0, hi == cfg.num_layers
+    if params is not None:
+        out = {"layers": {k: v[lo:hi].to(dev).clone()
+                          for k, v in params["layers"].items()}}
+        if first:
+            out["embed"] = params["embed"].to(dev).clone()
+        if last:
+            out["final_norm"] = params["final_norm"].to(dev).clone()
+            out["lm_head"] = params["lm_head"].to(dev).clone()
+        return out
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    hd = cfg.resolved_head_dim
+    h, L = cfg.hidden_size, cfg.num_layers
+    q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=cfg.param_dtype) * 0.02
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev, dtype=cfg.param_dtype)
+
+    out = {}
+    embed = normal(cfg.vocab_size, h)
+    if first:
+        out["embed"] = embed
+    del embed
+    layers = {}
+    for name, shape, drawn in (
+            ("attn_norm", (h,), False), ("wq", (h, q_out), True),
+            ("wk", (h, kv_out), True), ("wv", (h, kv_out), True),
+            ("wo", (q_out, h), True), ("mlp_norm", (h,), False),
+            ("w_gate", (h, cfg.mlp_dim), True),
+            ("w_up", (h, cfg.mlp_dim), True),
+            ("w_down", (cfg.mlp_dim, h), True)):
+        if drawn:
+            whole = normal(L, *shape)
+            layers[name] = whole[lo:hi].clone()
+            del whole
+        else:
+            layers[name] = ones(hi - lo, *shape)
+    out["layers"] = layers
+    if last:
+        out["final_norm"] = ones(h)
+    head = normal(h, cfg.vocab_size)
+    if last:
+        out["lm_head"] = head
+    return out
+
+
+class LlamaStage:
+    """Layers ``[lo, hi)`` of a Llama in a stage process: its params
+    (``stage_params``) on the process's device, and the stage's pieces of
+    ``llama_apply`` in its order (the embedding first, ``_decoder_layer``
+    per layer under ``layer_remat`` when autograd records, the head
+    last)."""
+
+    def __init__(self, cfg, lo, hi, seed=0, params=None, device=None,
+                 train=False):
+        import torch
+
+        from ray_tpu_torch._device import resolve_device
+        from ray_tpu_torch.actor import process_device
+
+        t0 = time.perf_counter()
+        self.cfg, self.lo, self.hi = cfg, lo, hi
+        self.first, self.last = lo == 0, hi == cfg.num_layers
+        # default: the device of the actor process it lives in
+        self.device = resolve_device(device or process_device())
+        self.params = stage_params(cfg, lo, hi, seed=seed, params=params,
+                                   device=self.device)
+        if train:
+            for _, t in tree_items(self.params):
+                t.requires_grad_(True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+        self.pid = os.getpid()
+
+    def _layers(self, x, remat=None):
+        import functools
+
+        from ray_tpu_torch.models.llama import (_decoder_layer, rope_tables,
+                                                stacked_layers)
+
+        cos, sin = rope_tables(self.cfg, x.shape[1], x.device)
+        layer = functools.partial(_decoder_layer, cfg=self.cfg, cos=cos,
+                                  sin=sin)
+        for _, lp in stacked_layers(self.params):
+            x = layer(x, lp) if remat is None else remat(layer, x, lp)
+        return x
+
+
+class ForwardStage(LlamaStage):
+    """A serving stage: ``forward(x)`` takes tokens (the first stage) or
+    the previous stage's hidden state and returns the next hidden state,
+    or on the last stage the last position's fp32 logits and the argmax
+    token of every position."""
+
+    def forward(self, x):
+        import torch
+
+        from ray_tpu_torch.models.llama import embed_tokens, lm_head
+
+        with torch.no_grad():
+            if self.first:
+                x = embed_tokens(self.params, x.to(self.device), self.cfg)
+            x = self._layers(x)
+            if not self.last:
+                return x
+            logits = lm_head(self.params, self.cfg, x)
+            return {"last_logits": logits[:, -1],
+                    "tokens": logits.argmax(-1)}
+
+
+class TrainStage(LlamaStage):
+    """A training stage for ``PipelineRunner``: ``forward(mb, x)`` takes a
+    microbatch's tokens ``[b, s + 1]`` (the first stage) or the previous
+    stage's ``{"h", "tokens"}``, keeps what its backward needs, and passes
+    the hidden state and the tokens on; the last stage returns the
+    microbatch's loss (``llama_loss``'s next-token mean).
+    ``backward(mb, g)`` back-propagates ``g`` (the last stage its loss)
+    into the stage's ``.grad``, which accumulate over microbatches, and
+    returns the gradient of its input hidden state."""
+
+    def __init__(self, cfg, lo, hi, seed=0, params=None, device=None):
+        from ray_tpu_torch.models.llama import layer_remat
+
+        super().__init__(cfg, lo, hi, seed=seed, params=params,
+                         device=device, train=True)
+        self.remat = layer_remat(cfg)
+        self.acts = {}
+        self.order = []
+
+    def forward(self, mb, x):
+        from ray_tpu_torch.models.llama import (embed_tokens, lm_head,
+                                                next_token_nll)
+
+        self.order.append(("F", mb))
+        if self.first:
+            tokens, inp = x.to(self.device), None
+            h = embed_tokens(self.params, tokens[:, :-1], self.cfg)
+        else:
+            tokens = x["tokens"]
+            inp = h = x["h"].detach().requires_grad_(True)
+        h = self._layers(h, self.remat)
+        if self.last:
+            loss = next_token_nll(lm_head(self.params, self.cfg, h),
+                                  tokens).mean()
+            self.acts[mb] = (inp, loss)
+            return float(loss.detach())
+        self.acts[mb] = (inp, h)
+        return {"h": h.detach(), "tokens": tokens}
+
+    def backward(self, mb, g):
+        self.order.append(("B", mb))
+        inp, out = self.acts.pop(mb)
+        out.backward(g)
+        return None if inp is None else inp.grad
+
+
+def stage_info(stage):
+    """``_remote_call`` body: the stage's pid, build seconds, device and
+    the bytes of its params."""
+    return {"pid": stage.pid, "build_s": stage.build_s,
+            "device": str(stage.device),
+            "params_gb": sum(t.numel() * t.element_size()
+                             for _, t in tree_items(stage.params)) / 1e9}
+
+
+def stage_launches(stage):
+    """``_remote_call`` body: K1-K4 launches counted in this process."""
+    return list(_all_launches())
+
+
+def stage_zero_launches(stage):
+    """``_remote_call`` body: zero this process's launch counts (and the
+    order and grads of a training stage, for a fresh timed run)."""
+    _zero_launches()
+    if isinstance(stage, TrainStage):
+        stage.order = []
+        for _, t in tree_items(stage.params):
+            t.grad = None
+    return True
+
+
+def stage_memory(stage):
+    """``_remote_call`` body: this process's device memory, allocated now
+    and at its peak, in GB."""
+    import torch
+
+    if stage.device.type != "cuda":
+        return {"allocated_gb": "not measured", "peak_gb": "not measured"}
+    return {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def stage_grad_digests(stage):
+    """``_remote_call`` body: ``tensor_digest`` of every grad leaf."""
+    return {p: tensor_digest(t.grad) for p, t in tree_items(stage.params)}
+
+
+def stage_grads(stage, paths=None):
+    """``_remote_call`` body: grad leaves on the host (all, or ``paths``)."""
+    return {p: t.grad.detach().cpu() for p, t in tree_items(stage.params)
+            if paths is None or p in paths}
+
+
+def stage_order(stage):
+    """``_remote_call`` body: the ops the training stage ran, in order."""
+    return list(stage.order)
+
+
+def stage_pipe_transports(stage, key):
+    """``_remote_call`` body: the counters of this stage's pipeline
+    transports (``PipelineRunner``'s, by edge)."""
+    from ray_tpu_torch.dag import pipeline_schedule
+
+    st = pipeline_schedule._PIPE_STATES[key]
+    return {tr.edge + f":{side}": {"tier": tr.tier, **tr.stats}
+            for side in ("fwd_in", "fwd_out", "bwd_in", "bwd_out")
+            for tr in [st.get(side)] if tr is not None}
+
+
+def stage_slice(tree, lo, hi, L):
+    """The paths of a whole tree's leaves that stage ``[lo, hi)`` holds,
+    each with its slice of the whole leaf."""
+    out = {}
+    for p, t in tree_items(tree):
+        if p.startswith("layers/"):
+            out[p] = t[lo:hi]
+        elif (p == "embed" and lo == 0) or (p in ("final_norm", "lm_head")
+                                            and hi == L):
+            out[p] = t
+    return out
+
+
+def start_stages(cls, specs, device="cuda", timeout=600):
+    """One actor of ``cls`` per ``(args, kwargs)`` in ``specs``, started
+    together on ``device``; returns the handles, each stage's
+    ``stage_info`` and the seconds until every one was built."""
+    from ray_tpu_torch import actor
+
+    t0 = time.perf_counter()
+    Stage = actor.ActorClass(cls).options(device=device)
+    stages = [Stage.remote(*a, **kw) for a, kw in specs]
+    try:
+        infos = actor.get([s._remote_call.remote(stage_info)
+                           for s in stages], timeout=timeout)
+    except BaseException:
+        for s in stages:
+            actor.kill(s)
+        raise
+    return stages, infos, time.perf_counter() - t0
+
+
+def dag_channel_waits(before, after):
+    """Seconds each exec-loop read edge waited between two ``stats()``."""
+    out = {}
+    for name, edges in after.get("actor_channels", {}).items():
+        for edge, st in edges.items():
+            if st["side"] == "read":
+                was = before["actor_channels"][name][edge]["read_wait_s"]
+                out[edge] = st["read_wait_s"] - was
+    for edge, st in after["driver_channels"].items():
+        if st["recvs"]:
+            out[edge] = (st["read_wait_s"]
+                         - before["driver_channels"][edge]["read_wait_s"])
+    return out
+
+
+def dag_degraded(stats):
+    """Frames that fell back from the device tier, over every edge."""
+    n = sum(st["degraded"] for st in stats["driver_channels"].values())
+    for edges in stats.get("actor_channels", {}).values():
+        n += sum(st["degraded"] for st in edges.values())
+    return n
+
+
+def phase_dag_forward(cfg, params, fwd, device="cuda", seq=SEQ,
+                      execs=DAG_FORWARD_EXECS, inflight=DAG_INFLIGHT):
+    """``llama_apply`` as a compiled DAG of two stage processes on one
+    card: ``inp -> stage0.forward -> stage1.forward``, each stage built
+    from the same seed as ``params`` (half the layers each; the first
+    holds the embedding, the last the final norm and head).  One warm-up
+    execution, then ``execs`` executions with up to ``inflight`` in
+    flight, each on its own tokens; every output (the last position's
+    logits and each position's argmax) is held against this process's
+    ``llama_apply`` of ``params`` on the same tokens: bit-equal expected,
+    a miss within K1's bf16 tolerance (atol = rtol = 2e-2) and reported.
+    Every edge must be on the device tier with no degraded frame, and K1
+    must launch once per layer of each stage per execution, counted in
+    the stage processes."""
+    import collections
+
+    import torch
+
+    from ray_tpu_torch import actor
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models.llama import llama_apply
+
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    half = L // 2
+    stages, infos, startup_s = start_stages(
+        ForwardStage, [((cfg, 0, half), {"seed": 0}),
+                       ((cfg, half, L), {"seed": 0})], device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    tokens = [torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                            device=device) for _ in range(execs + 1)]
+    try:
+        with InputNode() as inp:
+            dag = stages[1].forward.bind(stages[0].forward.bind(inp))
+        cdag = dag.experimental_compile(buffer_size_bytes=DAG_BUFFER_BYTES,
+                                        submit_timeout=300)
+        try:
+            cdag.execute(tokens[0]).get(timeout=600)  # warm-up
+            actor.get([s._remote_call.remote(stage_zero_launches)
+                       for s in stages], timeout=60)
+            before = cdag.stats()
+            t0 = time.perf_counter()
+            pending, outs = collections.deque(), []
+            for t in tokens[1:]:
+                if len(pending) >= inflight:
+                    outs.append(pending.popleft().get(timeout=300))
+                pending.append(cdag.execute(t))
+            while pending:
+                outs.append(pending.popleft().get(timeout=300))
+            per_exec_ms = 1e3 * (time.perf_counter() - t0) / execs
+            after = cdag.stats()
+            launches = actor.get([s._remote_call.remote(stage_launches)
+                                  for s in stages], timeout=60)
+            t0 = time.perf_counter()
+            cdag.execute(tokens[1]).get(timeout=300)
+            latency_ms = 1e3 * (time.perf_counter() - t0)
+            memory = actor.get([s._remote_call.remote(stage_memory)
+                                for s in stages], timeout=60)
+        finally:
+            cdag.teardown()
+    finally:
+        for s in stages:
+            actor.kill(s)
+    with torch.no_grad():
+        max_err, exact, within, agree = 0.0, True, True, []
+        for t, out in zip(tokens[1:], outs):
+            logits = llama_apply(params, t, cfg)
+            want_last, want_tok = logits[:, -1], logits.argmax(-1)
+            if out["last_logits"].device != want_last.device:
+                raise AssertionError(f"dag_forward: logits landed on "
+                                     f"{out['last_logits'].device}")
+            err = float((out["last_logits"] - want_last).abs().max())
+            max_err = max(max_err, err)
+            exact = exact and torch.equal(out["last_logits"], want_last) \
+                and torch.equal(out["tokens"], want_tok)
+            agree.append(float((out["tokens"] == want_tok).float().mean()))
+            within = within and torch.allclose(
+                out["last_logits"], want_last, atol=2e-2, rtol=2e-2)
+    tiers = after["channel_transport"]
+    return {"stages": 2, "layers_by_stage": [half, L - half],
+            "executions": execs, "inflight": inflight,
+            "buffer_size_bytes": DAG_BUFFER_BYTES,
+            "weights_by": "each stage drew its half from seed 0",
+            "stage_startup_s": startup_s,
+            "stage_build_s": [i["build_s"] for i in infos],
+            "stage_params_gb": [i["params_gb"] for i in infos],
+            "stage_memory": memory,
+            "edge_tiers": tiers, "degraded_frames": dag_degraded(after),
+            "per_exec_ms": per_exec_ms, "latency_ms_one_in_flight":
+            latency_ms, "one_process_forward_ms": fwd["forward_ms"],
+            "channel_wait_s_by_edge": dag_channel_waits(before, after),
+            "k1_k2_k3_k4_launches_by_stage": launches,
+            "k1_per_stage_per_exec": [c[0] / execs for c in launches],
+            "bit_equal": exact, "last_logits_max_abs_err": max_err,
+            "within_k1_tol": within,
+            "token_agreement": agree,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def check_dag_forward(out):
+    """``dag_forward``'s checks, after its line is printed: outputs
+    within K1's bf16 tolerance of one process (bit-equal expected), every
+    edge on the device tier with no degraded frame, K1 once per layer of
+    each stage per execution and K4 never."""
+    if not out["within_k1_tol"]:
+        raise AssertionError(f"dag_forward: last logits off the one-process "
+                             f"forward by {out['last_logits_max_abs_err']}")
+    if set(out["edge_tiers"].values()) != {"B-device"} \
+            or out["degraded_frames"]:
+        raise AssertionError(f"dag_forward: edge tiers {out['edge_tiers']}, "
+                             f"{out['degraded_frames']} degraded frames")
+    launches = out["k1_k2_k3_k4_launches_by_stage"]
+    if out["k1_per_stage_per_exec"] != out["layers_by_stage"] \
+            or any(c[3] for c in launches):
+        raise AssertionError(f"dag_forward: K1 per stage per execution "
+                             f"{out['k1_per_stage_per_exec']}, expected "
+                             f"{out['layers_by_stage']}; K1-K4 {launches}")
+
+
+def pipeline_microbatches(cfg, n, seq, device, seed=6):
+    """``n`` microbatches of one row of ``seq + 1`` random tokens."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (1, seq + 1), generator=gen,
+                          device=device) for _ in range(n)]
+
+
+def pipeline_reference(cfg, mbs, device):
+    """One process's ``llama_loss`` backward of ``llama_init(cfg, 0)``
+    accumulated over ``mbs`` in order: the losses, every grad leaf's
+    ``tensor_digest`` by stage slice, the grads on the host, the wall
+    seconds and the peak device memory."""
+    import torch
+
+    from ray_tpu_torch.models.llama import llama_init, llama_loss
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params = llama_init(cfg, seed=0, device=device)
+    for _, t in tree_items(params):
+        t.requires_grad_(True)
+    losses = []
+    t0 = time.perf_counter()
+    for mb in mbs:
+        loss = llama_loss(params, {"tokens": mb}, cfg)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    wall_s = time.perf_counter() - t0
+    grads = {p: t.grad for p, t in tree_items(params)}
+    out = {"losses": losses, "wall_s": wall_s,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                       else "not measured"),
+           "host": {p: g.detach().cpu() for p, g in grads.items()}}
+    L, half = cfg.num_layers, cfg.num_layers // 2
+    out["digests"] = [
+        {p: tensor_digest(g) for p, g in stage_slice(
+            grads, lo, hi, L).items()} for lo, hi in ((0, half), (half, L))]
+    del params, grads
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_dag_pipeline(out):
+    """``dag_pipeline``'s checks, after its line is printed: 1F1B order
+    per stage, K1 = K2 = K3 = one per layer per microbatch in each stage
+    and K4 never, every grad leaf bit-equal or within ``BWD_TOL``, both
+    edges on the device tier with no degraded frame, finite losses."""
+    if not out["schedule_order_ok"]:
+        raise AssertionError(f"dag_pipeline: ops ran in {out['orders']}, "
+                             "not in the 1F1B schedule's order")
+    for s, (c, want) in enumerate(zip(out["k1_k2_k3_k4_launches_by_stage"],
+                                      out["k1_k2_k3_expected_by_stage"])):
+        if c[:3] != [want] * 3 or c[3]:
+            raise AssertionError(f"dag_pipeline stage {s}: K1-K4 {c}, "
+                                 f"expected K1 = K2 = K3 = {want}, K4 = 0")
+    misses = out["grad_misses"]
+    if any(not m["within_bwd_tol"] for m in misses.values()):
+        raise AssertionError(f"dag_pipeline: grads off the one-process "
+                             f"accumulation past BWD_TOL: {misses}")
+    if out["edge_tiers"] != {"fwd:0->1": "B-device",
+                             "bwd:1->0": "B-device"} \
+            or out["degraded_frames"]:
+        raise AssertionError(f"dag_pipeline: edge tiers {out['edge_tiers']}"
+                             f", {out['degraded_frames']} degraded frames")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"dag_pipeline: losses {out['losses']}")
+
+
+def grad_miss(got, want):
+    """A grad leaf against the reference's: its largest error and whether
+    it is within ``BWD_TOL["bfloat16"]`` (elementwise atol of K3's dk,
+    the loosest of a layer's, with its rtol, and the relative L2)."""
+    import torch
+
+    tol = BWD_TOL["bfloat16"]
+    got, want = got.double(), want.double()
+    err = float((got - want).abs().max())
+    rel_l2 = float(torch.linalg.vector_norm(got - want)
+                   / torch.linalg.vector_norm(want).clamp_min(1e-30))
+    ok = bool(((got - want).abs() <= tol["atol"][1]
+               + tol["rtol"] * want.abs()).all()) and \
+        rel_l2 <= tol["rel_l2"]
+    return {"max_abs_err": err, "rel_l2": rel_l2, "within_bwd_tol": ok}
+
+
+def phase_dag_pipeline(cfg, train=None, device="cuda", seq=SEQ,
+                       n_micro=DAG_MICROBATCHES):
+    """The ``train`` phase's model through ``PipelineRunner(transport=
+    "channels")``: two stage processes on one card (half the layers each;
+    the first holds the embedding, the last the final norm and head),
+    ``n_micro`` microbatches of one row of ``seq + 1`` tokens under 1F1B.
+    First one process's ``llama_loss`` backward of the same weights
+    accumulated over the same microbatches in the same order
+    (``pipeline_reference``), then the card is freed for the stages.  One
+    warm-up run, then the grads and counts are zeroed and one run is timed
+    and checked: each stage's grad leaves must equal the reference's
+    slices bit for bit (by ``tensor_digest``), or a leaf that does not is
+    reported with its largest error and must be within ``BWD_TOL``; each
+    stage ran its ops in ``build_1f1b_schedule(2, n_micro)`` order; K1, K2
+    and K3 launched once per layer per microbatch in each stage process
+    and K4 never; both edges are on the device tier, none degraded."""
+    import torch
+
+    from ray_tpu_torch import actor
+    from ray_tpu_torch.dag.pipeline_schedule import (PipelineRunner,
+                                                     build_1f1b_schedule)
+
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    half = L // 2
+    mbs = pipeline_microbatches(cfg, n_micro, seq, device)
+    ref = pipeline_reference(cfg, mbs, device)
+    stages, infos, startup_s = start_stages(
+        TrainStage, [((cfg, 0, half), {"seed": 0}),
+                     ((cfg, half, L), {"seed": 0})], device)
+    try:
+        runner = PipelineRunner(stages, transport="channels",
+                                buffer_size=DAG_BUFFER_BYTES,
+                                op_timeout_s=300.0)
+        try:
+            runner.run(mbs, timeout=600)  # warm-up
+            actor.get([s._remote_call.remote(stage_zero_launches)
+                       for s in stages], timeout=60)
+            res = runner.run(mbs, timeout=600)
+            launches = actor.get([s._remote_call.remote(stage_launches)
+                                  for s in stages], timeout=60)
+            orders = actor.get([s._remote_call.remote(stage_order)
+                                for s in stages], timeout=60)
+            digests = actor.get([s._remote_call.remote(stage_grad_digests)
+                                 for s in stages], timeout=300)
+            memory = actor.get([s._remote_call.remote(stage_memory)
+                                for s in stages], timeout=60)
+            transports = actor.get(
+                [s._remote_call.remote(stage_pipe_transports, runner._key)
+                 for s in stages], timeout=60)
+            misses = {}
+            for s, (got, want) in enumerate(zip(digests, ref["digests"])):
+                bad = sorted(p for p in want if got.get(p) != want[p])
+                if bad:
+                    leaves = stages[s]._remote_call.remote(
+                        stage_grads, bad).get(timeout=600)
+                    whole = stage_slice(ref["host"], *(
+                        (0, half) if s == 0 else (half, L)), L)
+                    misses.update({f"stage{s}/{p}": grad_miss(
+                        leaves[p], whole[p]) for p in bad})
+        finally:
+            runner.close()
+    finally:
+        for s in stages:
+            actor.kill(s)
+    sched = build_1f1b_schedule(2, n_micro)
+    stats = res.stats
+    losses = [res.outputs[i] for i in range(n_micro)]
+    out = {"stages": 2, "layers_by_stage": [half, L - half],
+           "microbatches": n_micro, "batch": 1, "seq": seq,
+           "remat_policy": cfg.remat_policy,
+           "weights_by": "each stage drew its half from seed 0",
+           "stage_startup_s": startup_s,
+           "stage_build_s": [i["build_s"] for i in infos],
+           "stage_params_gb": [i["params_gb"] for i in infos],
+           "stage_memory": memory, "reference_peak_gb": ref["peak_gb"],
+           "reference_wall_ms": 1e3 * ref["wall_s"],
+           "losses": losses,
+           "losses_equal_one_process": losses == ref["losses"],
+           "one_process_losses": ref["losses"],
+           "grad_leaves": sum(len(d) for d in ref["digests"]),
+           "grad_leaves_bit_equal": sum(len(d) for d in ref["digests"])
+           - len(misses), "grad_misses": misses,
+           "schedule_order_ok": [[tuple(o) for o in order]
+                                 for order in orders] == sched,
+           "orders": orders,
+           "k1_k2_k3_k4_launches_by_stage": launches,
+           "k1_k2_k3_expected_by_stage": [half * n_micro,
+                                          (L - half) * n_micro],
+           "edge_tiers": stats["channel_transport"],
+           "degraded_frames": sum(st["degraded"] for edges in transports
+                                  for st in edges.values()),
+           "wall_ms": 1e3 * stats["wall_s"],
+           "bubble_fraction": stats["bubble_fraction"],
+           "analytic_bubble": stats["analytic_bubble"],
+           "stage_imbalance": stats["stage_imbalance"],
+           "per_stage": stats["per_stage"],
+           "channel_wait_s_by_tier": stats["channel_wait_s_by_tier"],
+           "transports": transports,
+           "phase_s": time.perf_counter() - t_phase}
+    if train is not None:
+        out["four_train_steps_ms"] = 4 * train["step_ms"]
+        out["four_train_steps_minus_optimizer_ms"] = 4 * (
+            train["step_ms"] - train["optimizer_ms"])
+    return out
+
+
+class DPStage:
+    """A data-parallel replica for ``dag4``: a Llama's params
+    (``llama_init`` from seed 0, the same on every replica) and its own
+    batches (one row of ``seq + 1`` tokens per step from seed
+    ``100 + rank``).  ``grad(step)`` is the local gradient flattened into
+    one tensor, ``busy_work(step)`` compute independent of it,
+    ``apply(g, aux)`` an SGD step with the allreduced gradient over the
+    world (at step 0 rank 0 also sums every replica's local gradient
+    itself, the one-process reference)."""
+
+    def __init__(self, cfg, rank, world, steps, seq=SEQ, lr=1e-3,
+                 device=None):
+        import torch
+
+        from ray_tpu_torch._device import resolve_device
+        from ray_tpu_torch.actor import process_device
+        from ray_tpu_torch.models.llama import llama_init
+
+        self.cfg, self.rank, self.world, self.lr = cfg, rank, world, lr
+        self.device = resolve_device(device or process_device())
+        self.params = llama_init(cfg, seed=0, device=self.device)
+        for _, t in tree_items(self.params):
+            t.requires_grad_(True)
+        self.batches = [pipeline_microbatches(cfg, steps, seq, self.device,
+                                              seed=100 + r)
+                        for r in range(world)]
+        self.sum_check = None
+        self.loss = None
+        self.pid = os.getpid()
+        self.build_s = 0.0
+        w = torch.Generator(device=self.device).manual_seed(rank)
+        self.busy = torch.randn(4096, 4096, generator=w, device=self.device)
+
+    def _local_grad(self, tokens):
+        import torch
+
+        from ray_tpu_torch.models.llama import llama_loss
+
+        for _, t in tree_items(self.params):
+            t.grad = None
+        loss = llama_loss(self.params, {"tokens": tokens}, self.cfg)
+        loss.backward()
+        return float(loss.detach()), torch.cat([t.grad.reshape(-1) for _, t in
+                                       tree_items(self.params)])
+
+    def grad(self, step):
+        self.step = step
+        self.loss, g = self._local_grad(self.batches[self.rank][step])
+        return g
+
+    def busy_work(self, step):
+        import torch
+
+        y = self.busy
+        for _ in range(8):
+            y = torch.tanh(y @ self.busy)
+        return float(y.float().mean())
+
+    def apply(self, g, aux):
+        import torch
+
+        if self.step == 0 and self.rank == 0:
+            # the one-process sum of every replica's local gradient at the
+            # common starting point, in rank order, against the
+            # allreduced one: fp32 sums of `world` terms in another order
+            # differ by at most (world - 1) * 2^-23 * sum |g_r| each way
+            total = absum = None
+            for r in range(self.world):
+                _, gr = self._local_grad(self.batches[r][0])
+                total = gr.clone() if total is None else total + gr
+                absum = gr.abs() if absum is None else absum + gr.abs()
+            bound = 2 * (self.world - 1) * 2.0 ** -23 * absum
+            diff = (g - total).abs()
+            self.sum_check = {"max_abs_err": float(diff.max()),
+                              "bit_equal": bool(torch.equal(g, total)),
+                              "within_bound": bool((diff <= bound).all())}
+        with torch.no_grad():
+            off = 0
+            for _, t in tree_items(self.params):
+                n = t.numel()
+                t -= self.lr * g[off:off + n].view_as(t) / self.world
+                off += n
+        flat = torch.cat([t.detach().reshape(-1) for _, t in
+                          tree_items(self.params)])
+        return {"rank": self.rank, "loss": self.loss, "aux": aux,
+                "params_digest": tensor_digest(flat),
+                "grad_digest": tensor_digest(g)}
+
+
+def dp_sum_check(stage):
+    """``_remote_call`` body: ``DPStage``'s step-0 reference check."""
+    return stage.sum_check
+
+
+def phase_dag4(cfg=None, world=MESH4_RANKS, steps=DAG4_STEPS, seq=SEQ,
+               device="cuda", backend="nccl"):
+    """A data-parallel step of a ``DAG4_LAYERS``-layer Llama-2-7B-width
+    model (fp32 params, bf16 compute) as one compiled DAG over ``world``
+    actors, one card each: ``grad`` -> ``allreduce.bind(...,
+    backend="nccl")`` overlapped with ``busy_work`` -> ``apply`` (SGD).
+    After ``steps`` steps the replicas' params must be bit-identical, and
+    at step 0 the allreduced gradient must match the four local gradients
+    summed in one process (rank 0) within the fp32 bound of reordered
+    sums.  Every edge is on the device tier."""
+    import torch
+
+    from ray_tpu_torch import actor
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce
+
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = dataclasses.replace(train_config(), num_layers=DAG4_LAYERS)
+    devices = ([f"cuda:{r}" for r in range(world)] if device == "cuda"
+               else ["cpu"] * world)
+    t0 = time.perf_counter()
+    workers = [actor.ActorClass(DPStage).options(device=d).remote(
+        cfg, r, world, steps, seq) for r, d in enumerate(devices)]
+    try:
+        actor.get([w._remote_call.remote(stage_info) for w in workers],
+                  timeout=600)
+        startup_s = time.perf_counter() - t0
+        with InputNode() as inp:
+            grads = [w.grad.bind(inp) for w in workers]
+            reduced = allreduce.bind(grads, backend=backend)
+            aux = [w.busy_work.bind(inp) for w in workers]
+            dag = MultiOutputNode([w.apply.bind(r, a) for w, r, a in
+                                   zip(workers, reduced, aux)])
+        cdag = dag.experimental_compile(submit_timeout=300)
+        try:
+            outs, step_ms = [], []
+            for step in range(steps):
+                if step == 1:
+                    # count the later steps: rank 0's first also runs the
+                    # one-process reference
+                    actor.get([w._remote_call.remote(stage_zero_launches)
+                               for w in workers], timeout=60)
+                t0 = time.perf_counter()
+                outs.append(cdag.execute(step).get(timeout=600))
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            stats = cdag.stats()
+            launches = actor.get([w._remote_call.remote(stage_launches)
+                                  for w in workers], timeout=60)
+        finally:
+            cdag.teardown()
+        check = workers[0]._remote_call.remote(dp_sum_check).get(timeout=60)
+    finally:
+        for w in workers:
+            actor.kill(w)
+    digests = [[o["params_digest"] for o in out] for out in outs]
+    if any(len(set(d)) != 1 for d in digests):
+        raise AssertionError(f"dag4: replicas differ after a step: "
+                             f"{digests}")
+    if not check["within_bound"]:
+        raise AssertionError(f"dag4: allreduced gradient off the "
+                             f"one-process sum: {check}")
+    tiers = set(stats["channel_transport"].values()) - {"A-fused"}
+    if device == "cuda" and tiers != {"B-device"}:
+        raise AssertionError(f"dag4: edge tiers "
+                             f"{stats['channel_transport']}")
+    per_step = [[c / (steps - 1) for c in counts] for counts in launches]
+    want = [cfg.num_layers] * 3 + [0]
+    if device == "cuda" and any(c != want for c in per_step):
+        raise AssertionError(f"dag4: K1-K4 per step by rank {per_step}, "
+                             f"expected {want}")
+    return {"ran": True, "ranks": world, "layers": cfg.num_layers,
+            "backend": backend, "steps": steps, "step_ms": step_ms,
+            "grad_elements": cfg.num_params(),
+            "losses_by_step": [[o["loss"] for o in out] for out in outs],
+            "replicas_bit_identical": True, "sum_check": check,
+            "k1_k2_k3_k4_per_step_by_rank": per_step,
+            "edge_tiers": stats["channel_transport"],
+            "stage_startup_s": startup_s,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def serve_prompts(vocab_size, seed=0):
@@ -6232,6 +7091,32 @@ def tiered_launches_by_path(tiered, i):
             "trainer_tiered": tiered["trainer_tiered"]["launches"][key]}
 
 
+def dag4_or_why():
+    """``phase_dag4`` with four or more cards, else why it did not run."""
+    import torch
+
+    if torch.cuda.device_count() < MESH4_RANKS:
+        return {"ran": False, "why": (
+            f"{torch.cuda.device_count()} card(s) present; the phase needs "
+            f"{MESH4_RANKS}")}
+    return phase_dag4()
+
+
+def dag_launches(dag_fwd, dag_pipe, dag4, i):
+    """Kernel ``i``'s launches (K1-K4) on the DAG paths, counted in their
+    stage processes: ``dag_forward``'s timed executions and
+    ``dag_pipeline``'s timed run by stage, and per step by rank on
+    ``dag4`` when it ran."""
+    out = {"dag_forward_by_stage": [
+        c[i] for c in dag_fwd["k1_k2_k3_k4_launches_by_stage"]],
+        "dag_pipeline_by_stage": [
+        c[i] for c in dag_pipe["k1_k2_k3_k4_launches_by_stage"]]}
+    if dag4.get("ran"):
+        out["dag4_per_step_by_rank"] = [
+            c[i] for c in dag4["k1_k2_k3_k4_per_step_by_rank"]]
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -6244,7 +7129,7 @@ def main(argv) -> int:
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
     if set(argv) - FOUR_CARD_PHASES - DATA_PHASES - SERVING_PHASES \
-            - RL_PHASES - TIERED_PHASES:
+            - RL_PHASES - TIERED_PHASES - DAG_PHASES:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     smi = phase_env()
     if argv:
@@ -6270,6 +7155,36 @@ def main(argv) -> int:
                       **phase_trainer4(mesh4)})
         if "health4" in argv:
             emit({"phase": "health4", **phase_health4()})
+        if "dag4" in argv:
+            emit({"phase": "dag4", "model": "llama2_7b", **dag4_or_why()})
+        if "dag_forward" in argv:
+            cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
+                                      param_dtype=torch.bfloat16)
+            params = llama_init(cfg, seed=0, device="cuda")
+            fwd = phase_forward(cfg, params)
+            emit({"phase": "forward", "forward_ms": fwd["forward_ms"],
+                  "k1_launches": fwd["k1_launches"]})
+            dag_fwd = phase_dag_forward(cfg, params, fwd)
+            emit({"phase": "dag_forward", "model": "llama2_7b",
+                  "layers": cfg.num_layers, "depth_cut": False, "batch": 1,
+                  "seq": SEQ, **dag_fwd})
+            check_dag_forward(dag_fwd)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "dag_pipeline" in argv:
+            train_cfg = train_config()
+            train = phase_train(train_cfg)
+            emit({"phase": "train", "step_ms": train["step_ms"],
+                  "optimizer_ms": train["optimizer_ms"],
+                  "launches": train["launches"]})
+            gc.collect()
+            torch.cuda.empty_cache()
+            dag_pipe = phase_dag_pipeline(train_cfg, train)
+            emit({"phase": "dag_pipeline", "model": "llama2_7b",
+                  "layers": TRAIN_LAYERS, "depth_cut": DEPTH_CUT,
+                  **dag_pipe})
+            check_dag_pipeline(dag_pipe)
         if "data_trainer" in argv:
             train_cfg = train_config()
             train = phase_train(train_cfg)
@@ -6336,6 +7251,11 @@ def main(argv) -> int:
     if fwd["k1_launches"] != cfg.num_layers:
         raise AssertionError(f"K1 launched {fwd['k1_launches']} times in "
                              f"the forward, expected {cfg.num_layers}")
+    dag_fwd = phase_dag_forward(cfg, params, fwd)
+    emit({"phase": "dag_forward", "model": "llama2_7b",
+          "layers": cfg.num_layers, "depth_cut": False, "batch": 1,
+          "seq": SEQ, **dag_fwd})
+    check_dag_forward(dag_fwd)
     torch.cuda.reset_peak_memory_stats()
     serve = phase_serve(cfg, params)
     single = {k: serve.pop(k) for k in ("first_token_logits",
@@ -6391,6 +7311,12 @@ def main(argv) -> int:
           "params_b": train_cfg.num_params() / 1e9, **train})
     check_train("train", train, {"K1": TRAIN_LAYERS, "K2": TRAIN_LAYERS,
                                  "K3": TRAIN_LAYERS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    dag_pipe = phase_dag_pipeline(train_cfg, train)
+    emit({"phase": "dag_pipeline", "model": "llama2_7b",
+          "layers": TRAIN_LAYERS, "depth_cut": DEPTH_CUT, **dag_pipe})
+    check_dag_pipeline(dag_pipe)
     gc.collect()
     torch.cuda.empty_cache()
     mesh = phase_mesh(train_cfg, train)
@@ -6504,6 +7430,10 @@ def main(argv) -> int:
         emit({"phase": "health4", "ran": False, "why": (
             f"{torch.cuda.device_count()} card(s) present; the phase needs "
             f"{MESH4_RANKS}")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    dag4 = dag4_or_why()
+    emit({"phase": "dag4", "model": "llama2_7b", **dag4})
 
     # the RL stack: rollouts and updates on the card, host runner
     # processes; none of K1-K4 on its paths
@@ -6572,6 +7502,7 @@ def main(argv) -> int:
          "source": source + "flash_fwd.cu", "replaces": replaces + "45",
          "launches": train["launches"]["K1"],
          "launches_by_path": {"forward": fwd["k1_launches"],
+                              **dag_launches(dag_fwd, dag_pipe, dag4, 0),
                               "serve": serve["k1_launches"],
                               "disagg": disagg["k1_launches"],
                               "moe_forward": moe_fwd["k1_launches"],
@@ -6589,6 +7520,7 @@ def main(argv) -> int:
          "source": source + "flash_bwd.cu", "replaces": replaces + "195",
          "design": bwd["k2_design"], "launches": train["launches"]["K2"],
          "launches_by_path": {**by_path("K2"), **serving(1),
+                              **dag_launches(dag_fwd, dag_pipe, dag4, 1),
                               **rl_launches_by_path(rl, 1),
                               **tiered_launches_by_path(tiered, 1)},
          "max_abs_err": bwd["dq_max_abs_err"],
@@ -6603,6 +7535,7 @@ def main(argv) -> int:
          "source": source + "flash_bwd.cu", "replaces": replaces + "232",
          "launches": train["launches"]["K3"],
          "launches_by_path": {**by_path("K3"), **serving(2),
+                              **dag_launches(dag_fwd, dag_pipe, dag4, 2),
                               **rl_launches_by_path(rl, 2),
                               **tiered_launches_by_path(tiered, 2)},
          "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
@@ -6618,6 +7551,7 @@ def main(argv) -> int:
          "replaces": "ray_tpu/experimental/channel/transport.py:285",
          "design": k4["design"], "launches": ring["k4_launches"],
          "launches_by_path": {"ring": ring["k4_launches"], **serving(3),
+                              **dag_launches(dag_fwd, dag_pipe, dag4, 3),
                               **health_pings, **rl_launches_by_path(rl, 3),
                               **tiered_launches_by_path(tiered, 3)},
          "max_abs_err": k4["max_abs_err"],

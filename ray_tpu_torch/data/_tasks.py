@@ -2,7 +2,7 @@
 ``remote``, ``get``, ``wait`` and ``put`` (the reference's
 ``ray_tpu.remote`` tasks and actors over its object store).
 
-The port has no task or actor runtime, and it runs on one machine, so a
+The port has no task runtime, and it runs on one machine, so a
 data task is a call on one shared ``ThreadPoolExecutor`` (its size is
 ``DataContext.task_pool_size``, default the host's CPU count) and an
 object ref wraps the call's ``Future``.  Threads suffice because the
@@ -15,7 +15,10 @@ Python ``map`` holds it, which is the divergence this design accepts.
   reference's streaming generator).
 - ``remote(cls)`` gives an actor class: each handle owns one thread of
   its own, so its methods run in call order and the instance is built
-  once (``ActorPoolStrategy``'s ``MapWorker``).
+  once (``ActorPoolStrategy``'s ``MapWorker``).  These are the data
+  plane's own: the port's process actors (``ray_tpu_torch/actor.py``,
+  one spawned process each, what the compiled DAG runs over) would cost
+  a process start per map worker.
 - ``put(value)`` returns a resolved ref.
 """
 
@@ -157,7 +160,8 @@ class _ActorMethod:
 
 
 class ActorHandle:
-    """One instance on one thread of its own."""
+    """One instance on one thread of its own (not a process actor of
+    ``ray_tpu_torch.actor``)."""
 
     def __init__(self, cls: type, args, kwargs):
         self._thread = cf.ThreadPoolExecutor(

@@ -4,11 +4,49 @@ raise)."""
 
 from __future__ import annotations
 
+import traceback
 from typing import Optional
 
 
 class RayTpuError(Exception):
     """Base class for the port's framework errors."""
+
+
+class TaskError(RayTpuError):
+    """A call raised an exception; re-raised at ``get`` with the remote
+    traceback (reference: ``TaskError``, ``RayTaskError``).  A compiled
+    DAG carries it through its channels to every downstream consumer."""
+
+    def __init__(self, cause_repr: str, remote_traceback: str,
+                 cause: Optional[BaseException] = None):
+        self.cause_repr = cause_repr
+        self.remote_traceback = remote_traceback
+        self.cause = cause
+        super().__init__(
+            f"{cause_repr}\n\nRemote traceback:\n{remote_traceback}")
+
+    @classmethod
+    def from_exception(cls, e: BaseException) -> "TaskError":
+        return cls(repr(e), "".join(traceback.format_exception(
+            type(e), e, e.__traceback__)), e)
+
+    @classmethod
+    def from_traceback(cls, remote_traceback: str) -> "TaskError":
+        """From a traceback's text alone (a process's error reply): its
+        last line names the exception."""
+        lines = [ln for ln in remote_traceback.strip().splitlines() if ln]
+        return cls(lines[-1] if lines else "remote error", remote_traceback)
+
+    def __reduce__(self):
+        # the cause may not pickle: keep it where it does, else its repr
+        import pickle
+
+        cause = self.cause
+        try:
+            pickle.dumps(cause)
+        except Exception:  # noqa: BLE001 — any pickling failure
+            cause = None
+        return (TaskError, (self.cause_repr, self.remote_traceback, cause))
 
 
 class CollectiveAbortError(RayTpuError):
@@ -49,10 +87,11 @@ class CollectiveAbortError(RayTpuError):
 
 class ActorDiedError(RayTpuError):
     """The process serving a call is dead or died while executing it
-    (reference: ``ActorDiedError``).  The port has no actors: a serve
-    replica is a process of its own (``serve/replica.py``), and a call
-    pending on one that exits fails with this error, so a router can
-    tell a replica's death from an error its code raised."""
+    (reference: ``ActorDiedError``).  An actor is a process of its own
+    (``ray_tpu_torch/actor.py``), as a serve replica is
+    (``serve/replica.py``): a call pending on one that exits fails with
+    this error, which names it, so a caller can tell its death from an
+    error its code raised."""
 
     def __init__(self, actor_id=None, msg: str = ""):
         self.actor_id = actor_id

@@ -1,15 +1,16 @@
-"""Compiled-graph channels: shm channels and per-edge tiered transports.
+"""Compiled-graph channels: shm channels, per-edge tiered transports and
+the communicators (counterpart of ``ray_tpu/experimental/channel/``)."""
 
-Counterpart of ``ray_tpu/experimental/channel/``.  Not ported yet: the
-communicators (``Communicator``, ``CpuCommunicator``, ``TpuCommunicator``
-wait for the NCCL collectives), ``CompositeChannel`` and
-``gather_endpoint_info`` (which needs actors).
-"""
-
+from ray_tpu_torch.experimental.channel.communicator import (
+    Communicator,
+    CpuCommunicator,
+    CudaCommunicator,
+)
 from ray_tpu_torch.experimental.channel.shared_memory_channel import (
     Channel,
     ChannelClosedError,
     ChannelTimeoutError,
+    CompositeChannel,
 )
 from ray_tpu_torch.experimental.channel.transport import (
     TIER_DEVICE,
@@ -19,6 +20,7 @@ from ray_tpu_torch.experimental.channel.transport import (
     EndpointInfo,
     attach_edge_transport,
     device_ring_copy,
+    gather_endpoint_info,
     local_endpoint_info,
     make_edge_transport,
     negotiate,
@@ -27,8 +29,9 @@ from ray_tpu_torch.experimental.channel.transport import (
 
 __all__ = [
     "Channel", "ChannelClosedError", "ChannelTimeoutError",
-    "EdgeTransport", "EndpointInfo", "TIER_DEVICE", "TIER_FUSED",
-    "TIER_HOST", "attach_edge_transport", "device_ring_copy",
-    "local_endpoint_info", "make_edge_transport", "negotiate",
-    "negotiate_channel",
+    "Communicator", "CompositeChannel", "CpuCommunicator",
+    "CudaCommunicator", "EdgeTransport", "EndpointInfo", "TIER_DEVICE",
+    "TIER_FUSED", "TIER_HOST", "attach_edge_transport", "device_ring_copy",
+    "gather_endpoint_info", "local_endpoint_info", "make_edge_transport",
+    "negotiate", "negotiate_channel",
 ]

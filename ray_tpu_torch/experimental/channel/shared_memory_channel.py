@@ -19,9 +19,11 @@ The high bit of the ``n_readers`` word marks the channel closed; the
 writer never stores to that word, so a close is sticky even mid-write.
 Waits are a short hot spin, then sleeps that back off from 0.1 ms to 1 ms.
 
+:class:`CompositeChannel` reads several channels as one tuple.
+
 Not ported: the reference's native data plane (``ray_tpu/_native/``
-channel.cc, the ``_NATIVE_BIT`` mode) and ``CompositeChannel``; a segment
-created in native mode is refused here.
+channel.cc, the ``_NATIVE_BIT`` mode); a segment created in native mode
+is refused here.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from __future__ import annotations
 import struct
 import time
 import uuid
-from typing import Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 from ray_tpu_torch._private.shm import open_shm
 
@@ -227,6 +229,14 @@ class Channel:
                 f"zero-copy view was live (read v{version}, now v{cur})")
         self._set_ack(self._reader_slot or 0, version)
 
+    def write(self, value: Any, timeout: Optional[float] = None) -> None:
+        """The reference's ``write``: :meth:`write_value`."""
+        self.write_value(value, timeout)
+
+    def read(self, timeout: Optional[float] = None) -> Any:
+        """The reference's ``read``: :meth:`read_value` onto the host."""
+        return self.read_value(timeout, device="cpu")
+
     def read_value(self, timeout: Optional[float] = None, device=None):
         """Safe value read: deserialize with owned (copied) buffers, then
         ack; the value never aliases the segment.  Tensors land on
@@ -306,3 +316,31 @@ def _attach_channel(name: str, buffer_size: int, num_readers: int,
                  _create=False)
     ch._reader_slot = reader_slot
     return ch
+
+
+class CompositeChannel:
+    """Fan-in of several channels read as one tuple, one value per channel
+    in order (counterpart of the reference's ``CompositeChannel``).  Each
+    member needs ``read(timeout)`` and ``close()``: a :class:`Channel`
+    (its values on the host) or an ``EdgeTransport``."""
+
+    def __init__(self, channels: List[Any]):
+        self.channels = list(channels)
+        # values already drained for the in-progress read: a mid-tuple
+        # timeout has consumed those channels' ack slots, so a retry must
+        # resume, not re-read (the compiled DAG's get does the same)
+        self._partial: List[Any] = []
+
+    def read(self, timeout: Optional[float] = None) -> tuple:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while len(self._partial) < len(self.channels):
+            budget = (None if deadline is None
+                      else max(0.0, deadline - time.monotonic()))
+            self._partial.append(
+                self.channels[len(self._partial)].read(budget))
+        out, self._partial = tuple(self._partial), []
+        return out
+
+    def close(self) -> None:
+        for c in self.channels:
+            c.close()

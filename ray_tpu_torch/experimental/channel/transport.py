@@ -36,8 +36,10 @@ transport to ``TIER_HOST`` (sticky, counted in ``stats["degraded"]``);
 both encodings share one wire format (a marker word ahead of the payload),
 so a degraded writer never desyncs its readers.
 
-Not ported: ``gather_endpoint_info`` / ``_probe_endpoint`` (they need
-actors), the per-edge latency hook into the health plane and the
+Each actor's endpoint info comes from one ``_remote_call`` round over the
+process actors (:func:`gather_endpoint_info`, ``ray_tpu_torch.actor``).
+
+Not ported: the per-edge latency hook into the health plane and the
 ``channel_wait`` tracing hook (both belong to the reference's runtime),
 and the native-data-plane branches.
 """
@@ -49,7 +51,7 @@ import os
 import socket
 import struct
 import time
-from typing import Any, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,6 +143,31 @@ def local_endpoint_info() -> EndpointInfo:
         platform, device_ids = "cpu", (0,)
     return EndpointInfo(node_id=_host_identity(), pid=os.getpid(),
                         platform=platform, device_ids=device_ids)
+
+
+def _probe_endpoint(instance) -> EndpointInfo:
+    """``_remote_call`` body: runs inside the actor process."""
+    return local_endpoint_info()
+
+
+def gather_endpoint_info(handles: Sequence[Any], *,
+                         timeout: float = 30.0
+                         ) -> Dict[Any, Optional[EndpointInfo]]:
+    """One ``_remote_call`` round over the actor ``handles``: actor id ->
+    its endpoint info.  A failed probe maps to None (its edges negotiate
+    tier C)."""
+    from ray_tpu_torch import actor
+
+    refs = [h._remote_call.remote(_probe_endpoint) for h in handles]
+    deadline = time.monotonic() + timeout
+    out: Dict[Any, Optional[EndpointInfo]] = {}
+    for h, ref in zip(handles, refs):
+        try:
+            out[h._actor_id] = actor.get(
+                ref, timeout=max(0.0, deadline - time.monotonic()))
+        except Exception:  # noqa: BLE001 — probe failure: portable tier
+            out[h._actor_id] = None
+    return out
 
 
 def negotiate(writer: Optional[EndpointInfo],
@@ -263,6 +290,11 @@ class EdgeTransport:
     def set_reader_slot(self, slot: int) -> "EdgeTransport":
         self.channel.set_reader_slot(slot)
         return self
+
+    def close(self) -> None:
+        """Close the channel: every peer's waits raise
+        ``ChannelClosedError`` from now on."""
+        self.channel.close()
 
     def destroy(self) -> None:
         self.channel.destroy()

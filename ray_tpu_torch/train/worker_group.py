@@ -216,19 +216,25 @@ def serve_commands(conn, target) -> None:
     """Serve ``target``'s methods as commands over the pipe ``conn``: each
     message is a pickled ``(method, args)``, each answer ``("ok",
     value)`` or ``("error", traceback)``, until ``shutdown`` or until the
-    other end closes.  Closes ``conn``.  The env runners of
-    ``ray_tpu_torch.rl`` serve theirs the same way."""
+    other end closes.  Closes ``conn``.
+
+    Commands run one at a time on the calling thread, in the order they
+    arrive, and are answered in that order, so a caller may send several
+    before it reads the first answer.  A value that does not pickle is
+    answered as an error.  The env runners of ``ray_tpu_torch.rl`` and
+    the process actors of ``ray_tpu_torch.actor`` serve theirs the same
+    way."""
     while True:
         try:
             cmd, args = pickle.loads(conn.recv_bytes())
         except (EOFError, OSError):
             break
         try:
-            reply = ("ok", getattr(target, cmd)(*args))
+            reply = pickle.dumps(("ok", getattr(target, cmd)(*args)))
         except BaseException:  # noqa: BLE001 — reported to the caller
-            reply = ("error", traceback.format_exc())
+            reply = pickle.dumps(("error", traceback.format_exc()))
         try:
-            conn.send_bytes(pickle.dumps(reply))
+            conn.send_bytes(reply)
         except (OSError, ValueError):
             break
         if cmd == "shutdown":

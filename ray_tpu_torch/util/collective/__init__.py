@@ -8,6 +8,7 @@ from ray_tpu_torch.util.collective.collective import (  # noqa: F401
     allreduce,
     barrier,
     broadcast,
+    create_collective_group,
     destroy_collective_group,
     flight_recorder_dump,
     get_collective_group_size,

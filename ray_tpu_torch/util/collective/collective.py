@@ -10,18 +10,22 @@ a sequence number, lands in the flight recorder, and raises
 ``destroy_collective_group`` + ``init_collective_group`` is the
 supported re-init path after an abort.
 
-The reference's ``create_collective_group(actors)`` is not ported: it
-dispatches the join into actors, which the port does not have.
+``create_collective_group(actors)`` makes process actors
+(``ray_tpu_torch.actor``) a group from their creator: it dispatches the
+join into each actor's process through ``_remote_call``.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch.util.collective.supervision import (  # noqa: F401
     SupervisedGroup,
+    drop_group_keys,
     flight_recorder_dump,
+    resolve_timeout,
 )
 from ray_tpu_torch.util.collective.types import Backend, ReduceOp
 
@@ -71,6 +75,7 @@ class GroupManager:
 
 
 _group_mgr = GroupManager()
+logger = logging.getLogger(__name__)
 
 
 def init_collective_group(
@@ -90,6 +95,69 @@ def init_collective_group(
     """
     _group_mgr.create(backend, world_size, rank, group_name,
                       timeout_s=timeout_s)
+
+
+def _join(instance, world_size, rank, backend, group_name, timeout_s):
+    """``_remote_call`` body: join the group in the actor's process."""
+    init_collective_group(world_size, rank, backend, group_name,
+                          timeout_s=timeout_s)
+    return rank
+
+
+def _leave(instance, group_name):
+    """``_remote_call`` body: leave the group if this process joined."""
+    if is_group_initialized(group_name):
+        destroy_collective_group(group_name)
+    return True
+
+
+def create_collective_group(
+    actors: List[Any],
+    world_size: int,
+    ranks: Optional[List[int]] = None,
+    backend: str = "tcp",
+    group_name: str = "default",
+    timeout_s: Optional[float] = None,
+) -> None:
+    """Creator-side setup: make the process ``actors`` a collective group.
+
+    Dispatches ``init_collective_group`` into every actor (through
+    ``_remote_call``, so their classes need no special method) and waits
+    until every rank has joined: ``"tcp"`` (gloo) for host tensors,
+    ``"nccl"`` for actors on one card each.  The wait is bounded: an actor
+    that dies before joining fails the call within the timeout, and the
+    partly formed group is torn down (joined ranks leave, rendezvous
+    keys are dropped) so the name can be used again.
+    """
+    from ray_tpu_torch import actor as actor_mod
+
+    if ranks is None:
+        ranks = list(range(len(actors)))
+    if len(actors) != len(ranks) or len(actors) != world_size:
+        raise ValueError(
+            f"{len(actors)} actors, {len(ranks)} ranks, world={world_size}")
+    Backend.parse(backend)
+    op_timeout = resolve_timeout(timeout_s)
+    try:
+        refs = [a._remote_call.remote(_join, world_size, r, backend,
+                                      group_name, timeout_s)
+                for a, r in zip(actors, ranks)]
+        # margin above the rendezvous timeout: the joins themselves must
+        # be reached in each actor's call order
+        actor_mod.get(refs, timeout=op_timeout + 30.0)
+    except Exception:
+        logger.warning("collective group %r: not all %d rank(s) joined; "
+                       "tearing down the partial group", group_name,
+                       world_size)
+        leave_refs = [a._remote_call.remote(_leave, group_name)
+                      for a in actors]
+        for ref in leave_refs:
+            try:
+                ref.get(timeout=10)
+            except Exception:  # noqa: BLE001 — a dead actor
+                pass
+        drop_group_keys(group_name, kv=actor_mod.run_store())
+        raise
 
 
 def is_group_initialized(group_name: str = "default") -> bool:

@@ -175,14 +175,15 @@ def drop_group_status_keys(group_name: str) -> None:
         pass
 
 
-def drop_group_keys(group_name: str) -> None:
+def drop_group_keys(group_name: str,
+                    kv: Optional[kv_mod.RunKV] = None) -> None:
     """Best-effort sweep of a group's KV footprint (rendezvous entry,
-    member status records).  The epoch COUNTER is deliberately kept: a
-    straggler from a destroyed generation may still be polling
-    rendezvous, and must never pass the next incarnation's epoch
-    check."""
+    member status records) in ``kv`` (default: this process's run KV).
+    The epoch COUNTER is deliberately kept: a straggler from a destroyed
+    generation may still be polling rendezvous, and must never pass the
+    next incarnation's epoch check."""
     try:
-        kv = _run_kv()
+        kv = kv or _run_kv()
         if kv is None:
             return
         prefix = f"collective/{group_name}/"

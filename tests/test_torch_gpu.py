@@ -344,15 +344,17 @@ def test_remote_copy_two_streams_on_one_pair():
 
 def _chip_smoke():
     """``chip_smoke.py`` as a module: its tables and checks serve the
-    script and the tests alike."""
-    import importlib.util
+    script and the tests alike.  Imported by name, with the repository's
+    root on the path, so that a stage actor's process can import its
+    class from it."""
+    import sys
 
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
 
 
 def _edge_counts(stage, sms):
@@ -905,3 +907,89 @@ def test_weight_publish_from_the_card_into_registered_slots():
                 params_digest(tree, v.version, v.epoch)
     finally:
         pub.close()
+
+
+@pytest.mark.gpu
+def test_compiled_dag_stages_on_card_bit_equal_one_process():
+    """A tiny bf16 Llama (4 layers, head_dim 64, K1 on the card) as two
+    stage processes on ``cuda:0`` under one compiled DAG: the last
+    position's logits and every argmax token equal one process's
+    ``llama_apply`` bit for bit, every edge on the device tier with no
+    degraded frame, and K1 once per layer per execution in each stage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: stage processes on the card")
+    from ray_tpu_torch import actor
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_apply
+
+    smoke = _chip_smoke()
+    cfg = LlamaConfig.tiny(num_layers=4, hidden_size=256, num_heads=4,
+                           num_kv_heads=4, max_seq_len=512,
+                           dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    params = smoke.stage_params(cfg, 0, 4, seed=0, device="cuda")
+    stages, _, _ = smoke.start_stages(
+        smoke.ForwardStage, [((cfg, 0, 2), {"seed": 0}),
+                             ((cfg, 2, 4), {"seed": 0})])
+    try:
+        with InputNode() as inp:
+            dag = stages[1].forward.bind(stages[0].forward.bind(inp))
+        compiled = dag.experimental_compile()
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            runs = 3
+            for _ in range(runs):
+                tokens = torch.randint(0, cfg.vocab_size, (1, 300),
+                                       generator=gen, device="cuda")
+                out = compiled.execute(tokens).get(timeout=120)
+                want = llama_apply(params, tokens, cfg)
+                assert torch.equal(out["last_logits"], want[:, -1])
+                assert torch.equal(out["tokens"], want.argmax(-1))
+            stats = compiled.stats()
+            launches = actor.get([s._remote_call.remote(
+                smoke.stage_launches) for s in stages], timeout=60)
+        finally:
+            compiled.teardown()
+    finally:
+        for s in stages:
+            actor.kill(s)
+    assert set(stats["channel_transport"].values()) == {"B-device"}
+    assert smoke.dag_degraded(stats) == 0
+    assert [c[0] for c in launches] == [2 * runs, 2 * runs]
+
+
+@pytest.mark.gpu
+def test_killed_stage_on_card_surfaces_actor_died():
+    """A stage process on the card killed while it computes: the pending
+    execution's ``get`` raises ``ActorDiedError`` naming the stage, and
+    ``teardown`` returns promptly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: stage processes on the card")
+    import time
+
+    from ray_tpu_torch import actor
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.exceptions import ActorDiedError
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    smoke = _chip_smoke()
+    cfg = LlamaConfig.tiny(num_layers=2, dtype=torch.bfloat16,
+                           param_dtype=torch.bfloat16)
+    stages, _, _ = smoke.start_stages(
+        smoke.ForwardStage, [((cfg, 0, 1), {"seed": 0}),
+                             ((cfg, 1, 2), {"seed": 0})])
+    try:
+        with InputNode() as inp:
+            dag = stages[1].forward.bind(stages[0].forward.bind(inp))
+        compiled = dag.experimental_compile()
+        tokens = torch.zeros(1, 16, dtype=torch.long, device="cuda")
+        compiled.execute(tokens).get(timeout=120)
+        actor.kill(stages[1])
+        ref = compiled.execute(tokens)
+        with pytest.raises(ActorDiedError, match="ForwardStage"):
+            ref.get(timeout=60)
+        t0 = time.monotonic()
+        compiled.teardown(timeout=10)
+        assert time.monotonic() - t0 < 8.0
+    finally:
+        for s in stages:
+            actor.kill(s)

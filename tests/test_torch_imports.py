@@ -62,6 +62,20 @@ def test_serving_front_sources_are_covered():
     assert want <= rel, sorted(want - rel)
 
 
+def test_dag_sources_are_covered():
+    """The compiled-graph DAG's modules, the process actors and the
+    channel plane's communicators are among the sources checked for jax
+    and ``ray_tpu`` imports."""
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    want = {f"ray_tpu_torch/dag/{m}.py" for m in (
+        "__init__", "dag_node", "interpreter", "collective_node",
+        "compiled_dag", "pipeline_schedule")}
+    want |= {"ray_tpu_torch/actor.py",
+             "ray_tpu_torch/experimental/channel/communicator.py",
+             "ray_tpu_torch/util/collective/collective.py"}
+    assert want <= rel, sorted(want - rel)
+
+
 def test_import_leaves_jax_and_reference_unloaded():
     code = (
         "import sys\n"
@@ -109,7 +123,12 @@ def test_import_leaves_jax_and_reference_unloaded():
         "ray_tpu_torch._private.resilience, "
         "ray_tpu_torch.train.checkpoint_async, "
         "ray_tpu_torch.util.checkpoint_replica, "
-        "ray_tpu_torch.rl.weight_sync, ray_tpu_torch.rl.rlhf\n"
+        "ray_tpu_torch.rl.weight_sync, ray_tpu_torch.rl.rlhf, "
+        "ray_tpu_torch.actor, ray_tpu_torch.dag, "
+        "ray_tpu_torch.dag.dag_node, ray_tpu_torch.dag.interpreter, "
+        "ray_tpu_torch.dag.collective_node, ray_tpu_torch.dag.compiled_dag, "
+        "ray_tpu_torch.dag.pipeline_schedule, "
+        "ray_tpu_torch.experimental.channel.communicator\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas', 'aiohttp'))\n"
         "print(bad)\n"
