@@ -5,8 +5,9 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-(On a machine with four or more cards the four-card phases below can
-run alone, after the ``env`` phase: ``python3 chip_smoke.py mesh4`` runs
+(``python3 chip_smoke.py startup`` runs the ``env`` and ``startup``
+phases alone.  On a machine with four or more cards the four-card
+phases below can run alone, after the ``env`` phase: ``python3 chip_smoke.py mesh4`` runs
 ``mesh4``, ``serve_mesh4`` the ``serve`` phase it compares with and
 ``serve_mesh4``, ``trainer4`` ``mesh4`` and ``trainer4``; the names
 combine, as in ``python3 chip_smoke.py serve_mesh4 trainer4``.  On one
@@ -65,10 +66,22 @@ Phases, each printing one JSON line:
    top-2) held alike: its forward, then three train steps under its full
    remat; and the three train steps again through a world-1 NCCL mesh
    (the params DTensors) against the plain path on the CPU.
+3b. ``startup``: process start-up split by stage.  After one throw-away
+   child that starts the worker zygote (``_private/worker_zygote.py``),
+   four children bound to ``cuda:0`` start together through the zygote,
+   then four with ``RAY_TPU_TORCH_USE_WORKER_ZYGOTE=0`` (cold, through
+   ``spawn``).  Each stamps its entry, ``import torch``, the port's
+   imports, its CUDA context, the K1 library's load and its first K1
+   launch (b=1, h=8, s=256, d=128, bf16, causal), held against the plain
+   attention at K1's tolerance; the parent stamps its reply.  The line
+   gives each stage's median and range per start method, the zygote's
+   preload, and fails unless every zygote child's parent is the zygote
+   (and every cold one's this process), the zygote had one thread and no
+   CUDA when it forked, and every child launched K1 once on the card.
 4. ``channel``: a device-tier edge between two processes.  This process
    writes ten 16 MiB bf16 activations (and a step counter) through
-   ``make_edge_transport``; a reader started with ``spawn`` on the same
-   card lands each on the card with ``read_borrowed`` and sends back a
+   ``make_edge_transport``; a reader forked by the worker zygote on the
+   same card lands each on the card with ``read_borrowed`` and sends back a
    digest of its bytes.  Both ends must negotiate the device tier from
    their own endpoint info, every frame must be a device frame, none may
    degrade, and every segment is destroyed.
@@ -102,7 +115,7 @@ Phases, each printing one JSON line:
    tensors).  Every token must equal ``serve``'s; decode tokens/s, the
    profiled window and peak memory are printed beside ``serve``'s.
 7c. ``serve_mesh4`` (only with four or more cards; else a line says
-   so): four NCCL ranks, one per card, spawned and joined with a
+   so): four NCCL ranks, one per card, started and joined with a
    timeout, serve the same requests with Llama-2-7B at full depth on
    ``tp=4``, on ``pp=2 x tp=2`` and on ``dp=2 x pp=2`` (one card's ops on
    each stage, which shows what the pp hand-off alone changes).  The
@@ -193,14 +206,14 @@ Phases, each printing one JSON line:
    two are bit-equal is printed); wall, busy ms, idle share and peak
    memory are printed beside ``train``'s.
 10c. ``mesh4`` (only with four or more cards): four NCCL ranks, one per
-   card, spawned and joined with a timeout: ``make_llama_trainer`` at
+   card, started and joined with a timeout: ``make_llama_trainer`` at
    Llama-2-7B's full 32 layers on ``fsdp=4`` (one row of s=2048 per
    rank) and on ``fsdp=2 x tp=2``, one warm-up and two timed steps each,
    K1/K2/K3 launching once per layer per step on every rank; then
    ``ring_attention`` over ``sp=4`` at s=8192 (bf16, 32 heads, d=128)
    against K1 on the whole sequence, to K1's bf16 forward tolerance.
 10d. ``trainer``: the ``train`` phase's step through the multi-GPU
-   trainer: ``TorchTrainer`` (``ray_tpu_torch.train``) spawns one worker
+   trainer: ``TorchTrainer`` (``ray_tpu_torch.train``) starts one worker
    process bound to the card (this process holds under 1 GB then), whose
    loop (``trainer_loop``) runs two warm-up, three timed and one
    profiled step at the same width, depth, seed and tokens, each followed
@@ -309,7 +322,7 @@ Phases, each printing one JSON line:
    rollout processes' start-up, and K1-K4 counted in the worker (0).
    ``weight_sync_7b``: a ``WeightPublisher`` on the card publishes five
    versions of a Llama-2-7B-width, 2-layer bf16 tree (1.33 GB) to a
-   ``WeightSubscriber`` in a spawned CPU process, the last two into
+   ``WeightSubscriber`` in a CPU process, the last two into
    reused payload slots; each version must be adopted with its digest
    matching and every leaf's sha256 equal to the card's.  ``trainer_tiered``: ``TorchTrainer`` with one worker on
    the card, ``CheckpointConfig(mode="tiered")`` and one restart
@@ -338,7 +351,12 @@ K1-K3 1 per step on ``trainer_tiered`` and 0 on ``rlhf`` (in its
 worker) and ``weight_sync_7b``, and K1-K3 at
 Mixtral's attention shape), the
 ``nvidia-smi`` line and, last, the result line
-``{"ok": true, "device": {...}}``.  Any failure raises: the traceback is
+``{"ok": true, "device": {...}}``.  Every process a phase starts forks
+from the worker zygote: each phase line that started any carries
+``starts`` (the children the zygote forked for this process since the
+previous phase line, and any cold start, fallback or zygote restart),
+and a fallback or a restart anywhere, or a cold start outside
+``startup``, fails the run.  Any failure raises: the traceback is
 printed, the exit code is non-zero and no result line is printed.  Without
 CUDA, or without the package beside it, the script exits non-zero at once.
 """
@@ -356,11 +374,18 @@ import subprocess
 import sys
 import time
 
+# when this module began, and when it had imported torch and the port: a
+# child re-imports its starter's main module before its target runs, and
+# the startup phase splits a child's start-up at these stamps
+_T_MAIN = time.time()
+import torch  # noqa: E402,F401
+_T_TORCH = time.time()
 try:  # the runner path's host env derives from the port's gym adapter
     from ray_tpu_torch.rl.env import EnvSpec as _EnvSpec
     from ray_tpu_torch.rl.env import GymVectorEnv as _GymVectorEnv
 except ImportError:  # chip_smoke.py without the package: main() refuses
     _EnvSpec, _GymVectorEnv = None, object
+_T_PORT = time.time()
 
 SEQ = 2048          # forward phase sequence length (b = 1)
 SERVE_SLOTS = 4
@@ -399,7 +424,7 @@ MESH4_MESHES = {"fsdp4": {"dp": 1, "fsdp": 4},
                 "fsdp2_tp2": {"dp": 1, "fsdp": 2, "tp": 2}}
 MESH4_RING_SEQ = 8192
 MESH4_TIMEOUT_S = 600
-# the trainer phases (TorchTrainer over spawned worker processes): the
+# the trainer phases (TorchTrainer over worker processes): the
 # small resumed run's steps and the step its first attempt fails at, and
 # trainer4's collectives (bytes of integer-valued fp32 per rank, timed
 # calls per op)
@@ -526,6 +551,12 @@ RING_RANKS = 4
 RING_SHIFTS = (1, 3)
 RING_SPLIT_WARMUP, RING_SPLIT_RINGS = 2, 8
 CHANNEL_FRAMES = 10
+# the startup phase: children per start method, and each child's first K1
+# (b, s, h, d; bf16, causal, K1_CASES's bf16 tolerances)
+STARTUP_CHILDREN = 4
+STARTUP_K1 = (1, 256, 8, 128)
+STARTUP_STAGES = ("process", "interpreter", "torch", "port", "entry",
+                  "context", "kernel_lib", "k1", "reply")
 # K4: its copy kernel's name; the hops of the cross-stream completion;
 # the sleep that lets the host queue a whole hop before the card reaches
 # it (~0.1 ms)
@@ -565,7 +596,32 @@ BWD_TOL = {
 }
 
 
+_STARTS_SEEN = {}  # the worker zygote's counts at the last phase line
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line.  A phase line gains ``starts``, the
+    processes this process started since the previous phase line, when
+    it started any; it fails the run, once printed, on a start that fell
+    back to ``spawn`` or found the zygote dead, and on a cold start
+    outside the ``startup`` phase."""
+    if isinstance(obj, dict) and "phase" in obj:
+        from ray_tpu_torch._private import worker_zygote
+
+        now = worker_zygote.stats()
+        delta = {k: now[k] - _STARTS_SEEN.get(k, 0) for k in (
+            "children", "cold", "fallbacks", "restarts", "zygote_starts")}
+        _STARTS_SEEN.update(now)
+        if any(delta.values()):
+            obj = {**obj, "starts": {**delta,
+                                     "zygote_pid": now["zygote_pid"]}}
+            print(json.dumps(obj), flush=True)
+            if delta["fallbacks"] or delta["restarts"] or (
+                    delta["cold"] and obj["phase"] != "startup"):
+                raise AssertionError(f"{obj['phase']}: a process did not "
+                                     f"start through the worker zygote: "
+                                     f"{obj['starts']}")
+            return
     print(json.dumps(obj), flush=True)
 
 
@@ -1354,15 +1410,230 @@ def while_alive(proc, op, timeout):
                 raise
 
 
+def startup_zygote_probe(conn):
+    """The ``startup`` phase's first child: it only makes the zygote
+    start, and answers with the zygote's preload record."""
+    from ray_tpu_torch._private import worker_zygote
+
+    conn.send(worker_zygote.preload_report())
+    conn.close()
+
+
+def startup_child(conn, device):
+    """One child of the ``startup`` phase: its stages in seconds
+    (``STARTUP_STAGES`` from ``interpreter`` to ``k1``, the first four
+    from this module's stamps when the child imported it), its first K1
+    launch against the plain attention, and its parent."""
+    t_target = time.time()
+    import torch
+
+    from ray_tpu_torch._private import worker_zygote
+    from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+    t_imports = time.time()
+    created = worker_zygote.proc_start_epoch(os.getpid())
+    stages = {"interpreter": _T_MAIN - created, "torch": _T_TORCH - _T_MAIN,
+              # the gym adapter this module imports, then K1's wrapper
+              "port": _T_PORT - _T_TORCH + t_imports - t_target,
+              "entry": t_target - _T_PORT}
+    t = {"imports": t_imports}
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.empty(1, device=dev)
+        torch.cuda.synchronize()
+    t["context"] = time.time()
+    if dev.type == "cuda":
+        fa._lib()
+    t["kernel_lib"] = time.time()
+    b, sq, h, d = STARTUP_K1
+    gen = torch.Generator().manual_seed(24)
+    q, k, v = (torch.randn(b, sq, h, d, generator=gen).to(
+        torch.bfloat16).to(dev) for _ in range(3))
+    launches = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t["k1"] = time.time()
+    for a, b in zip(("imports", "context", "kernel_lib"),
+                    ("context", "kernel_lib", "k1")):
+        stages[b] = t[b] - t[a]
+    launches = fa.flash_attention_fwd.launches - launches
+    pout, plse = fa.flash_attention_plain(q, k, v, causal=True)
+    err_o = (out.float() - pout.float()).abs()
+    conn.send({"stages": stages, "created": created, "k1_done": t["k1"],
+               "pid": os.getpid(), "ppid": os.getppid(),
+               "device": str(out.device), "k1_launches": launches,
+               "max_abs_err": float(err_o.max()),
+               "lse_max_abs_err": float((lse - plse).abs().max()),
+               "within_tol": bool((err_o <= 2e-2 + 2e-2 * pout.float().abs())
+                                  .all()) and float((lse - plse).abs().max())
+               <= 1e-3})
+    conn.close()
+
+
+def start_children(n, device, timeout=300):
+    """``n`` ``startup_child`` processes of ``worker_zygote.get_context()``
+    started together; each one's reply with the parent's stamps (``start``
+    just before its ``start()``, ``reply`` when its answer arrived) and
+    its stage durations in seconds."""
+    from multiprocessing.connection import wait
+
+    from ray_tpu_torch._private import worker_zygote
+
+    ctx = worker_zygote.get_context()
+    kids = []
+    try:
+        for _ in range(n):
+            parent, child = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=startup_child, daemon=True,
+                               args=(child, device))
+            t_start = time.time()
+            proc.start()
+            child.close()
+            kids.append({"proc": proc, "conn": parent, "start": t_start})
+        replies = {}
+        deadline = time.monotonic() + timeout
+        while len(replies) < n:
+            left = deadline - time.monotonic()
+            ready = wait([k["conn"] for k in kids if id(k) not in replies],
+                         max(0.0, left))
+            if not ready:
+                raise AssertionError(f"startup: {n - len(replies)} children "
+                                     f"did not answer within {timeout} s")
+            for kid in kids:
+                if kid["conn"] in ready:
+                    try:
+                        got = kid["conn"].recv()
+                    except EOFError:
+                        raise AssertionError(
+                            f"startup: child pid {kid['proc'].pid} exited "
+                            f"(code {kid['proc'].exitcode}) without "
+                            "answering") from None
+                    replies[id(kid)] = {**got, "reply": time.time(),
+                                        "start": kid["start"]}
+        out = []
+        for kid in kids:
+            r = replies[id(kid)]
+            r["stages_s"] = {"process": r["created"] - r["start"],
+                             **r["stages"],
+                             "reply": r["reply"] - r["k1_done"]}
+            r["total_s"] = r["reply"] - r["start"]
+            out.append(r)
+            kid["proc"].join(30)
+        return out
+    finally:
+        for kid in kids:
+            kid["conn"].close()
+            if kid["proc"].is_alive():
+                kid["proc"].kill()
+                kid["proc"].join(10)
+
+
+def startup_split(children):
+    """Median and range of each stage and of the total over ``children``."""
+    import statistics
+
+    rows = {st: [c["stages_s"][st] for c in children]
+            for st in STARTUP_STAGES}
+    rows["total"] = [c["total_s"] for c in children]
+    return {st: {"median_s": statistics.median(v), "min_s": min(v),
+                 "max_s": max(v)} for st, v in rows.items()}
+
+
+def phase_startup(device="cuda:0", n=STARTUP_CHILDREN):
+    """Process start-up split by stage, through the worker zygote and cold
+    (``RAY_TPU_TORCH_USE_WORKER_ZYGOTE=0``): see the module's docstring.
+    ``stages`` per method: ``process`` from ``start()`` to the child's
+    creation (its kernel start time, 10 ms ticks), ``interpreter`` to the
+    start of this module's re-import there (a cold child's interpreter;
+    a forked one's environment and paths), ``torch`` its ``import
+    torch``, ``port`` its imports of the port (the gym adapter at this
+    module's top, K1's wrapper in the target), ``entry`` the rest of the
+    module and the unpickling of its target, ``context`` its CUDA
+    context, ``kernel_lib`` K1's library's load, ``k1`` its first K1
+    synchronised, ``reply`` from there to its answer here (the plain
+    attention's check included)."""
+    import torch
+
+    from ray_tpu_torch._private import worker_zygote
+
+    ctx = worker_zygote.get_context()
+    parent, child = ctx.Pipe(duplex=False)
+    probe = ctx.Process(target=startup_zygote_probe, args=(child,),
+                        daemon=True)
+    t0 = time.time()
+    probe.start()
+    child.close()
+    if not parent.poll(300):
+        raise AssertionError("startup: the zygote forked no child in 300 s")
+    zy = parent.recv()  # the zygote's preload record, as it forked the probe
+    first_start_s = time.time() - t0
+    probe.join(30)
+    zygote_pid = worker_zygote.stats()["zygote_pid"]
+    forked = start_children(n, device)
+    key = "RAY_TPU_TORCH_USE_WORKER_ZYGOTE"
+    old = os.environ.get(key)
+    os.environ[key] = "0"
+    try:
+        cold = start_children(n, device)
+    finally:
+        if old is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = old
+    faults = []
+    want_dev = str(torch.device(device))
+    for method, kids, parent_pid in (("zygote", forked, zygote_pid),
+                                     ("spawn", cold, os.getpid())):
+        for c in kids:
+            if c["ppid"] != parent_pid:
+                faults.append(f"{method} child {c['pid']}: parent "
+                              f"{c['ppid']}, expected {parent_pid}")
+            if c["device"] != want_dev or c["k1_launches"] != (
+                    1 if want_dev.startswith("cuda") else 0):
+                faults.append(f"{method} child {c['pid']}: K1 on "
+                              f"{c['device']}, {c['k1_launches']} launches")
+            if not c["within_tol"]:
+                faults.append(f"{method} child {c['pid']}: K1 off its plain "
+                              f"version by {c['max_abs_err']} (lse "
+                              f"{c['lse_max_abs_err']})")
+    if zy.get("pid") != zygote_pid or zy.get("threads") != 1 \
+            or zy.get("cuda_initialized") is not False:
+        faults.append(f"the zygote's preload record {zy}")
+    if faults:
+        raise AssertionError("startup: " + "; ".join(faults))
+    split = {"zygote": startup_split(forked), "spawn": startup_split(cold)}
+    return {
+        "children_per_method": n, "device": want_dev,
+        "k1_shape": dict(zip("bshd", STARTUP_K1)), "dtype": "bfloat16",
+        "zygote_first_start_s": first_start_s,
+        "zygote_preload": {
+            "interpreter_s": zy["preload_start"] - zy["created"],
+            "preload_s": zy["preload_s"],
+            "created_to_ready_s": zy["ready"] - zy["created"],
+            "threads": zy["threads"],
+            "cuda_initialized": zy["cuda_initialized"],
+            "modules": len(zy["loaded"]), "failed": zy["failed"]},
+        "stages_s": split,
+        "total_median_s": {m: split[m]["total"]["median_s"] for m in split},
+        "k1_launches": sum(c["k1_launches"] for c in forked + cold),
+        "k1_max_abs_err": max(c["max_abs_err"] for c in forked + cold),
+        "children": {"zygote": [{"pid": c["pid"], "ppid": c["ppid"],
+                                 **c["stages_s"]} for c in forked],
+                     "spawn": [{"pid": c["pid"], "ppid": c["ppid"],
+                                **c["stages_s"]} for c in cold]}}
+
+
 def phase_channel(device="cuda:0", frames=CHANNEL_FRAMES):
-    """A device-tier edge between this process and a reader started with
-    ``spawn`` on the same card: ``frames`` activations written through
+    """A device-tier edge between this process and a reader forked by the
+    worker zygote on the same card: ``frames`` activations written through
     ``make_edge_transport`` (sized as the compiled DAG sizes a channel for
     a 16 MiB payload: + 256 bytes of frame slack), landed by the reader,
     digests compared.  Returns times, tiers and stats."""
-    import multiprocessing
-
     import torch
+
+    from ray_tpu_torch._private import worker_zygote
 
     from ray_tpu_torch._private.shm import open_shm
     from ray_tpu_torch.experimental.channel.transport import (
@@ -1378,7 +1649,7 @@ def phase_channel(device="cuda:0", frames=CHANNEL_FRAMES):
     back = make_edge_transport(tier=TIER_HOST, buffer_size=1 << 16,
                                edge="stage1->stage0")
     reply = attach_edge_transport(back, 0, device=device)
-    proc = multiprocessing.get_context("spawn").Process(
+    proc = worker_zygote.get_context().Process(
         target=channel_reader, daemon=True,
         args=(fwd, back, writer_info, frames, str(torch.device(device))))
     names = [fwd.name, back.name]
@@ -4233,19 +4504,20 @@ def mesh4_body():
 
 
 def phase_mesh4(world=MESH4_RANKS, timeout=MESH4_TIMEOUT_S):
-    """``world`` ranks (``mesh4_rank``) started with ``spawn``, joined
-    within ``timeout`` seconds (killed past it).  Fails unless every rank
+    """``world`` ranks (``mesh4_rank``) forked by the worker zygote,
+    joined within ``timeout`` seconds (killed past it).  Fails unless every rank
     reports, K1/K2/K3 launch once per layer per step on every rank, the
     losses are finite and the ring agrees with K1 on the whole
     sequence."""
-    import multiprocessing
     import queue as queue_mod
     import socket
+
+    from ray_tpu_torch._private import worker_zygote
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    ctx = multiprocessing.get_context("spawn")
+    ctx = worker_zygote.get_context()
     results = ctx.Queue()
     procs = [ctx.Process(target=mesh4_rank, args=(r, world, port, results))
              for r in range(world)]
@@ -4520,7 +4792,9 @@ def data_trainer_loop(config):
     launches and the landed batch's int64 sum, shape, dtype and device;
     then one row with
     the remaining batches' sums and shapes, the shard's ingest stats and
-    the segment its split channel used."""
+    the segment its split channel used; the first row also when the loop
+    started."""
+    t_start = time.time()
     import torch
 
     from ray_tpu_torch import train
@@ -4574,7 +4848,8 @@ def data_trainer_loop(config):
                       "consumer_blocked_ms": out["blocked_ms"],
                       "k1_k2_k3": [b - a for a, b in zip(
                           before, _launch_counts())],
-                      "landed": _landed_row(out["tokens"]), **h2d})
+                      "landed": _landed_row(out["tokens"]), **h2d,
+                      **({"t_loop_start": t_start} if i == 0 else {})})
     rest = [_landed_row(b["data"]) for b in batches]
     train.report({"kind": "ingest", "rest": rest,
                   "stats": shard.ingest_stats.to_dict(),
@@ -4624,6 +4899,7 @@ def phase_data_trainer(trainer_run):
                     "dtype": "int64", "blocks": 1,
                     "batch": "iter_torch_batches(batch_size=1, "
                              "prefetch_batches=2)"},
+        "worker_start_s": steps[0]["t_loop_start"] - t_fit,
         "fit_s": fit_s, "step_ms": step_ms,
         "trainer_step_ms": trainer_run["step_ms"],
         "step_ms_minus_trainer": step_ms - trainer_run["step_ms"],
@@ -4685,7 +4961,9 @@ def resume_loop(config):
     ``Checkpoint.from_state_dict`` of the params, the AdamW state and the
     step.  The first attempt raises at step ``RESUME_FAIL_AT``; a
     restarted attempt resumes from the latest checkpoint
-    (``to_state_dict`` onto a fresh state's devices)."""
+    (``to_state_dict`` onto a fresh state's devices).  Each row carries
+    when its attempt's loop started and when it was reported."""
+    t_start = time.time()
     from ray_tpu_torch import train
     from ray_tpu_torch.models.training import tree_leaves
 
@@ -4706,7 +4984,9 @@ def resume_loop(config):
             config["dir"], f"{attempt}_step{step}"))
         train.report({"step": step, "loss": float(m["loss"]),
                       "attempt": attempt,
-                      "k1_k2_k3": list(_launch_counts())}, checkpoint=saved)
+                      "k1_k2_k3": list(_launch_counts()),
+                      "t_loop_start": t_start, "t_report": time.time()},
+                     checkpoint=saved)
 
 
 def phase_trainer_resume():
@@ -4730,6 +5010,7 @@ def phase_trainer_resume():
     layers = small_train_config().num_layers
     tmp = tempfile.mkdtemp(prefix="trainer_resume_")
     t0 = time.perf_counter()
+    t_fit = time.time()
     try:
         result = TorchTrainer(
             resume_loop, train_loop_config={"dir": tmp},
@@ -4776,6 +5057,10 @@ def phase_trainer_resume():
            "launches": {k: got[RESUME_FAIL_AT - 1]["k1_k2_k3"][i]
                         + got[-1]["k1_k2_k3"][i]
                         for i, k in enumerate(("K1", "K2", "K3"))},
+           "worker_start_s": got[0]["t_loop_start"] - t_fit,
+           # the failure's last report to the restarted worker's loop
+           "restart_s": got[RESUME_FAIL_AT]["t_loop_start"]
+           - got[RESUME_FAIL_AT - 1]["t_report"],
            "fit_s": fit_s, "phase_s": time.perf_counter() - t0}
     if not (out["resumed_losses_bit_equal"] and tensors_equal):
         raise AssertionError(f"trainer_resume: the resumed run differs from "
@@ -5019,8 +5304,8 @@ def fp32_reference(cfg, params, prompts, tokens):
 
 def phase_serve_mesh4(cfg, params, single, world=MESH4_RANKS,
                       timeout=SERVE_MESH4_TIMEOUT_S):
-    """``world`` ranks (``serve_mesh4_rank``), one per card, started with
-    ``spawn`` and joined within ``timeout`` seconds (killed past it),
+    """``world`` ranks (``serve_mesh4_rank``), one per card, forked by the
+    worker zygote and joined within ``timeout`` seconds (killed past it),
     serve the ``serve`` phase's requests at full depth on each mesh of
     ``SERVE_MESH4_MESHES``.  ``single`` is the single-card engine's
     ``serve_run``.  Fails unless every rank reports; lists in
@@ -5042,11 +5327,12 @@ def phase_serve_mesh4(cfg, params, single, world=MESH4_RANKS,
     fp32 and from the single card (first token and first decode step),
     decode tokens/s, per-rank weight and pool bytes and NCCL ms per
     decode step."""
-    import multiprocessing
     import queue as queue_mod
     import socket
 
     import torch
+
+    from ray_tpu_torch._private import worker_zygote
 
     serve_tokens = single["token_ids"]
     prompts = serve_prompts(cfg.vocab_size)
@@ -5063,7 +5349,7 @@ def phase_serve_mesh4(cfg, params, single, world=MESH4_RANKS,
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    ctx = multiprocessing.get_context("spawn")
+    ctx = worker_zygote.get_context()
     results = ctx.Queue()
     procs = [ctx.Process(target=serve_mesh4_rank,
                          args=(r, world, port, results, prompts, cfg))
@@ -6565,15 +6851,18 @@ def rlhf_update_check(device="cuda"):
 
 def rlhf_worker_loop(config):
     """The RLHF worker's loop (``rlhf._rlhf_train_loop``) between K1-K4's
-    counts zeroed and read in the worker, reported as a last row."""
+    counts zeroed and read in the worker, reported as a last row with the
+    processes the worker started (its rollout processes)."""
     t_start = time.time()
     from ray_tpu_torch import train
+    from ray_tpu_torch._private import worker_zygote
     from ray_tpu_torch.rl import rlhf
 
     _zero_launches()
     rlhf._rlhf_train_loop(config)
     train.report({"kind": "launches", "k1_k2_k3_k4": list(_all_launches()),
-                  "t_loop_start": t_start})
+                  "t_loop_start": t_start,
+                  "worker_starts": worker_zygote.stats()})
 
 
 def phase_rlhf(device=None):
@@ -6626,7 +6915,12 @@ def phase_rlhf(device=None):
         ("finite loss", bool(np.isfinite(m["loss"]))),
         ("no rejected payload",
          all(s["rejected"] == 0 for s in m["subscriber_stats"])),
-        ("K1-K4 0 in the worker", counted["k1_k2_k3_k4"] == [0] * 4))
+        ("K1-K4 0 in the worker", counted["k1_k2_k3_k4"] == [0] * 4),
+        ("rollouts forked by the zygote",
+         counted["worker_starts"]["children"] >= 3
+         and not counted["worker_starts"]["fallbacks"]
+         and not counted["worker_starts"]["restarts"]
+         and not counted["worker_starts"]["cold"]))
         if not ok]
     if problems:
         raise AssertionError(f"rlhf: failed {problems}: {m}")
@@ -6654,6 +6948,7 @@ def phase_rlhf(device=None):
         "worker_start_s": counted["t_loop_start"] - t_fit,
         "loop_setup_s": m["setup_s"],
         "rollout_startup_s": m["rollout_startup_s"],
+        "worker_starts": counted["worker_starts"],
         "k1_k2_k3_k4_launches": counted["k1_k2_k3_k4"],
         "fit_s": fit_s, "phase_s": time.perf_counter() - t0}
 
@@ -6693,16 +6988,14 @@ def ws7b_subscriber(conn, kv_addr):
 
 def phase_weight_sync_7b(device="cuda"):
     """``WS7B_VERSIONS`` versions of a Llama-2-7B-width, 2-layer bf16 tree
-    published from the card to a subscriber in a spawned CPU process
+    published from the card to a subscriber in a CPU process
     through the run store this process hosts (the first three into new
     payload slots, the rest into reused ones).  Fails unless each version
     is adopted, the digest matches on both sides and every leaf's sha256
     equals the card's."""
-    import multiprocessing
-
     import torch
 
-    from ray_tpu_torch._private import kv as kv_mod
+    from ray_tpu_torch._private import kv as kv_mod, worker_zygote
     from ray_tpu_torch._private.shm import sweep_segments
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init
     from ray_tpu_torch.rl.weight_sync import WeightPublisher
@@ -6719,7 +7012,7 @@ def phase_weight_sync_7b(device="cuda"):
     nbytes = sum(t.numel() * t.element_size() for t in
                  [params["embed"], params["lm_head"], params["final_norm"],
                   *params["layers"].values()])
-    ctx = multiprocessing.get_context("spawn")
+    ctx = worker_zygote.get_context()
     parent, child = ctx.Pipe()
     proc = ctx.Process(target=ws7b_subscriber, args=(child, kv.addr),
                        daemon=True, name="ws7b-subscriber")
@@ -6787,7 +7080,7 @@ def phase_weight_sync_7b(device="cuda"):
         torch.cuda.empty_cache()
     return {"model": "llama2_7b width", "layers": WS7B_LAYERS,
             "dtype": "bfloat16", "bytes": nbytes,
-            "subscriber": "a spawned CPU process",
+            "subscriber": "a CPU process forked by the worker zygote",
             "subscriber_start_s": started["ready_s"],
             "subscriber_spawn_to_ready_s": spawn_to_ready_s,
             "versions": versions, "phase_s": time.perf_counter() - t0}
@@ -7129,10 +7422,12 @@ def main(argv) -> int:
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
     if set(argv) - FOUR_CARD_PHASES - DATA_PHASES - SERVING_PHASES \
-            - RL_PHASES - TIERED_PHASES - DAG_PHASES:
+            - RL_PHASES - TIERED_PHASES - DAG_PHASES - {"startup"}:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     smi = phase_env()
     if argv:
+        if "startup" in argv:
+            emit({"phase": "startup", **phase_startup()})
         if "serve_mesh4" in argv:
             cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
                                       param_dtype=torch.bfloat16)
@@ -7231,6 +7526,8 @@ def main(argv) -> int:
     k4 = phase_kernels_k4()
     emit({"phase": "small_reference", **phase_small_reference()})
     emit({"phase": "vit_small_reference", **phase_vit_small_reference()})
+    startup = phase_startup()
+    emit({"phase": "startup", **startup})
     emit({"phase": "channel", **phase_channel()})
     ring = phase_ring()
     emit({"phase": "ring", **ring})
@@ -7501,7 +7798,8 @@ def main(argv) -> int:
         {"name": "K1 flash_fwd", "route": "cuda",
          "source": source + "flash_fwd.cu", "replaces": replaces + "45",
          "launches": train["launches"]["K1"],
-         "launches_by_path": {"forward": fwd["k1_launches"],
+         "launches_by_path": {"startup": startup["k1_launches"],
+                              "forward": fwd["k1_launches"],
                               **dag_launches(dag_fwd, dag_pipe, dag4, 0),
                               "serve": serve["k1_launches"],
                               "disagg": disagg["k1_launches"],

@@ -241,9 +241,9 @@ def run_bound(node_id: str, fn: Callable, *args, timeout: float,
     ``node_id``, with the faults armed on it in the run at ``kv_addr``;
     its result, or None when it does not answer within ``timeout`` (the
     process is killed) or raises."""
-    import multiprocessing
+    from ray_tpu_torch._private import worker_zygote
 
-    ctx = multiprocessing.get_context("spawn")
+    ctx = worker_zygote.get_context()
     parent, child = ctx.Pipe(duplex=False)
     proc = ctx.Process(target=_bound_main,
                        args=(child, node_id, kv_addr, fn, args),

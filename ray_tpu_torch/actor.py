@@ -5,7 +5,8 @@
 The reference registers an actor with the GCS, which leases it a worker
 process.  The port has no GCS or raylet: as the trainer's workers
 (``train/worker_group.py``) and the env runners are, an actor is one OS
-process started by ``multiprocessing``'s ``spawn`` context.  The process
+process forked by the worker zygote (``_private/worker_zygote.py``).  The
+process
 builds the instance, answers with its pid (or the constructor's
 traceback), then serves the instance's methods as commands over a pipe
 (``train/worker_group.serve_commands``).  Calls run one at a time on the
@@ -19,9 +20,9 @@ need no process of their own.
 What travels:
 - Messages are stdlib ``pickle``: an actor class, and a function sent
   through ``handle._remote_call``, travel by reference, so each must be
-  defined at a module's top level (spawn re-imports a script's main
-  module, so a driver script needs its ``if __name__ == "__main__"``
-  guard).
+  defined at a module's top level (the child re-imports a script's main
+  module, as ``spawn`` does, so a driver script needs its
+  ``if __name__ == "__main__"`` guard).
 - A call's arguments may be refs (an :class:`ActorRef`, from any actor):
   they are resolved to their values in the driver before the call is sent,
   on a sender thread of the handle, so ``remote()`` never blocks.  An
@@ -463,8 +464,7 @@ class ActorClass:
         return f"cuda:{dev.index or 0}"
 
     def remote(self, *args, **kwargs) -> ActorHandle:
-        import multiprocessing
-
+        from ray_tpu_torch._private import worker_zygote
         from ray_tpu_torch.train.worker_group import allow_children
 
         cls = self._cls
@@ -478,7 +478,7 @@ class ActorClass:
         env = {ENV_KV: _store_address()}
         methods = [n for n, _ in inspect.getmembers(cls, callable)
                    if not n.startswith("_")]
-        ctx = multiprocessing.get_context("spawn")
+        ctx = worker_zygote.get_context()
         parent, child = ctx.Pipe()
         proc = ctx.Process(
             target=_actor_main, daemon=True,

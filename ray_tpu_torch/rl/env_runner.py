@@ -2,8 +2,8 @@
 
 Counterpart of ``ray_tpu/rl/env_runner.py`` (reference:
 ``rllib/env/single_agent_env_runner.py`` + ``env_runner_group.py``).  The
-reference's runner is an actor; here each runner is an OS process started
-by ``multiprocessing``'s ``spawn`` context, serving ``EnvRunner``'s
+reference's runner is an actor; here each runner is an OS process forked
+by the worker zygote (``_private/worker_zygote.py``), serving ``EnvRunner``'s
 methods as commands over a pipe (``train/worker_group.serve_commands``,
 as the train workers do).  The runner's policy runs on the host CPU: that
 is the design (envs that step in Python), stated as ``device="cpu"``.
@@ -11,7 +11,7 @@ The torch-env fast path does not need runners (rollouts run on the
 learner's device).
 
 A name registered with ``register_env`` in the driver lives in the
-driver's registry; a spawned runner starts with an empty one, so the
+driver's registry; a runner's registry starts empty, so the
 group carries the registered factory (which must pickle: a module-level
 function or class) to each runner, which registers it there.
 """
@@ -234,11 +234,11 @@ class EnvRunnerGroup:
         return self._budget.dropped
 
     def _start(self) -> RunnerHandle:
-        import multiprocessing
+        from ray_tpu_torch._private import worker_zygote
 
         env_name, num_envs_per, module_spec, factory = self._spawn_args
         self._spawned += 1
-        ctx = multiprocessing.get_context("spawn")
+        ctx = worker_zygote.get_context()
         parent, child = ctx.Pipe()
         proc = ctx.Process(
             target=_runner_main,

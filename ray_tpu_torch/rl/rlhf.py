@@ -31,8 +31,8 @@ resubscribed at the durable record.
 
 Where the port differs, by design:
 
-- A rollout actor is a process spawned by the learner's worker (``spawn``
-  context), serving ``RolloutActor``'s methods over a pipe
+- A rollout actor is a process started by the learner's worker (forked
+  by the same worker zygote as the worker itself), serving ``RolloutActor``'s methods over a pipe
   (``train/worker_group.serve_commands``), as ``rl/env_runner.py``'s
   runners do.  It samples on the host CPU (``CUDA_VISIBLE_DEVICES=""``):
   the reference's actor asks for no accelerator either, and the learner
@@ -331,13 +331,12 @@ class RolloutGroup:
         return self._budget.dropped
 
     def _start(self):
-        import multiprocessing
-
+        from ray_tpu_torch._private import worker_zygote
         from ray_tpu_torch.rl.env_runner import RunnerHandle
         from ray_tpu_torch.train.worker_group import allow_children
 
         self.spawn_counter += 1
-        ctx = multiprocessing.get_context("spawn")
+        ctx = worker_zygote.get_context()
         parent, child = ctx.Pipe()
         proc = ctx.Process(
             target=_rollout_main,

@@ -10,10 +10,10 @@ the route table and the app ingresses.  A router in any process, a
 replica holding nested handles among them, reads them there; replicas
 find the store in ``RAY_TPU_TORCH_SERVE_STORE``.
 
-It deploys and deletes, starts replica processes (``spawn``) and admits
-each into the routed set once it reports ready, prunes a replica whose
-process exited the tick it happens and starts a replacement, and health
-checks the running ones (three failures in a row: killed and replaced).
+It deploys and deletes, starts replica processes (forked by the worker
+zygote) and admits each into the routed set once it reports ready,
+prunes a replica whose process exited the tick it happens and starts a
+replacement, and health checks the running ones (three failures in a row: killed and replaced).
 A replica that fails to start before its deployment ever had a ready
 one is not retried: ``serve.run`` raises with its traceback.  The
 engine-signal pool autoscaler and drain migration wait (ROADMAP).
@@ -22,7 +22,6 @@ engine-signal pool autoscaler and drain migration wait (ROADMAP).
 from __future__ import annotations
 
 import json
-import multiprocessing
 import os
 import pickle
 import threading
@@ -30,7 +29,7 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional
 
-from ray_tpu_torch._private import kv as kv_mod
+from ray_tpu_torch._private import kv as kv_mod, worker_zygote
 from ray_tpu_torch._private.accelerators import ENV_NODE_ID
 from ray_tpu_torch.serve._wire import ReplicaHandle
 from ray_tpu_torch.serve.replica import replica_main, target_ref
@@ -239,7 +238,7 @@ class ServeController:
                 "replica_id": rid, "authkey": self._authkey,
                 "max_ongoing_requests":
                 st["config"]["max_ongoing_requests"]}
-        ctx = multiprocessing.get_context("spawn")
+        ctx = worker_zygote.get_context()
         parent, child = ctx.Pipe()
         proc = ctx.Process(target=replica_main, args=(child, spec),
                            name=f"serve-replica-{rid}", daemon=True)

@@ -1,10 +1,10 @@
 """Replica: one process hosting one copy of the user callable (counterpart
 of ``ray_tpu/serve/replica.py``).
 
-The reference's replica is an actor.  The port's is a process started by
-``multiprocessing``'s ``spawn`` context (never ``fork``: a forked child
-of a process that has touched CUDA cannot use the card), as a rank of
-``train/worker_group.py``.  Its ``ReplicaActor`` methods become
+The reference's replica is an actor.  The port's is a process forked by
+the worker zygote (``_private/worker_zygote.py``; never a fork of the
+controller: a forked child of a process that has touched CUDA cannot
+use the card), as a rank of ``train/worker_group.py`` is.  Its ``ReplicaActor`` methods become
 :class:`Replica`'s, served over the loopback wire of ``serve/_wire.py``;
 the controller keeps a pipe to the process for its lifecycle (ready or
 the start's traceback, then ``shutdown``).  A replica placed on a card

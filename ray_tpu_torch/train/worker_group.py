@@ -3,9 +3,10 @@
 
 The reference runs each rank in an actor that a placement group
 gang-schedules.  The port reaches one node, so each rank is an OS
-process started by ``multiprocessing``'s ``spawn`` context (never
-``fork``: a forked child of a process that has touched CUDA cannot use
-the card).  ``TrainWorker``'s methods are commands the process serves
+process forked by the worker zygote (``_private/worker_zygote.py``:
+one preloaded process that has never touched CUDA, so a child can still
+use the card; ``RAY_TPU_TORCH_USE_WORKER_ZYGOTE=0`` starts each cold
+through ``spawn``).  ``TrainWorker``'s methods are commands the process serves
 over a pipe, as the reference's actor methods; the user loop runs in a
 thread of the worker, and the controller polls for its status.  Pipe
 messages are stdlib ``pickle``, so a loop travels by reference: it must
@@ -312,14 +313,13 @@ class WorkerGroup:
 
     def start(self) -> None:
         """Check that the group fits this node (as a placement group
-        that cannot place fails), then spawn one process per rank, rank
+        that cannot place fails), then start one process per rank, rank
         r on the r-th unit with ``RAY_TPU_TORCH_NODE_ID`` and
         ``LOCAL_RANK`` (the unit's index: its card, or its slot) set,
         and wait until every one answers."""
-        import multiprocessing
-
         import torch
 
+        from ray_tpu_torch._private import worker_zygote
         from ray_tpu_torch._private.accelerators import (ENV_NODE_ID,
                                                          default_resources,
                                                          unit_index)
@@ -345,7 +345,7 @@ class WorkerGroup:
                 f"worker group {self.group_name} cannot be placed: "
                 f"{sc.num_workers} workers, {len(units)} "
                 f"{'cards' if sc.use_gpu else 'slots'} free ({units})")
-        ctx = multiprocessing.get_context("spawn")
+        ctx = worker_zygote.get_context()
         try:
             for rank in range(sc.num_workers):
                 parent, child = ctx.Pipe()

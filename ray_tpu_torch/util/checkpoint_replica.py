@@ -300,9 +300,9 @@ class ReplicaPlane:
         """Spawn a server for each unit that has none yet, without waiting
         for it (the controller starts them beside the workers, whose
         start-up they would otherwise add to)."""
-        import multiprocessing
+        from ray_tpu_torch._private import worker_zygote
 
-        ctx = multiprocessing.get_context("spawn")
+        ctx = worker_zygote.get_context()
         for node_id in node_ids:
             if not node_id or node_id in self._servers \
                     or node_id in self._starting:
