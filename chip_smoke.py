@@ -443,7 +443,8 @@ SERVE_MESH4_TIMEOUT_S = 600
 # the four-card phases a run may name alone (``python3 chip_smoke.py
 # serve_mesh4 mesh4 trainer4 health4``); trainer4 runs mesh4 first, whose
 # first loss it is held to
-FOUR_CARD_PHASES = {"serve_mesh4", "mesh4", "trainer4", "health4", "dag4"}
+FOUR_CARD_PHASES = {"serve_mesh4", "mesh4", "trainer4", "health4", "dag4",
+                    "mesh_group4"}
 # the compiled-graph DAG's phases: two stage processes on one card
 # (dag_forward: 16 + 16 layers of Llama-2-7B in bf16; dag_pipeline: the
 # train phase's 16 layers as 8 + 8 under 1F1B), frames of one 16 MiB
@@ -551,6 +552,17 @@ RING_RANKS = 4
 RING_SHIFTS = (1, 3)
 RING_SPLIT_WARMUP, RING_SPLIT_RINGS = 2, 8
 CHANNEL_FRAMES = 10
+# the single-process multi-card group (mesh_group on cuda:0, mesh_group4
+# on four cards): integer-valued fp32 elements per rank of the
+# reductions (64 MiB), timed calls per op, the DAG mesh owner's fp32
+# elements per card (16 MiB) and its executions; a partial permutation
+# of four ranks (ranks 1 and 2 receive nothing and must read zeros)
+MESH_GROUP_INT_NUMEL = 1 << 24
+MESH_GROUP_ITERS = 10
+MESH_GROUP_DAG_NUMEL = 1 << 22
+MESH_GROUP_DAG_EXECS = 3
+MESH_GROUP_PARTIAL = ((0, 3), (3, 0))
+MESH_GROUP_REDUCE_OPS = ("sum", "max", "min", "product")
 # the startup phase: children per start method, and each child's first K1
 # (b, s, h, d; bf16, causal, K1_CASES's bf16 tolerances)
 STARTUP_CHILDREN = 4
@@ -758,6 +770,7 @@ def ptxas_report(text):
 def phase_env():
     import torch
 
+    from ray_tpu_torch._private import accelerators
     from ray_tpu_torch.ops.cuda import _build
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -772,6 +785,11 @@ def phase_env():
           "cuda": torch.version.cuda, "nvcc": nvcc,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
+          "accelerators": {
+              "resources": accelerators.detect_resources(),
+              "labels": accelerators.detect_labels(),
+              accelerators.ENV_VISIBLE: os.environ.get(
+                  accelerators.ENV_VISIBLE)},
           "build_s": build_s, "ptxas": ptxas,
           "profiler_windows": {
               "windows": PROFILER_WINDOWS, "pad_s": PROFILE_PAD_S,
@@ -1816,6 +1834,382 @@ def phase_ring(device="cuda"):
                 "rest": ms["call"] - ms["launch"] - ms["check"],
                 "sync": ms["sync"]},
             "host_split_rings": RING_SPLIT_RINGS}
+
+
+def cards_ms(fn, devices, iters=MESH_GROUP_ITERS) -> float:
+    """Mean device span per call of ``fn`` over several cards: CUDA events
+    on each card's current stream around ``iters`` calls after a
+    warm-up; the longest card's."""
+    import torch
+
+    fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    ends = []
+    for d in devices:
+        with torch.cuda.device(d):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ends.append((d, start))
+    for _ in range(iters):
+        fn()
+    spans = []
+    for d, start in ends:
+        with torch.cuda.device(d):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            spans.append(start.elapsed_time(end) / iters)
+    return max(spans)
+
+
+def bus_gbps(op, nbytes, n, ms):
+    """NCCL-tests' bus bandwidth of one call: ``nbytes`` (a rank's input;
+    allgather: its output) over ``ms``, times 2(n-1)/n for allreduce and
+    (n-1)/n for allgather and reducescatter; a permute's hop and a
+    broadcast move the bytes once."""
+    factor = {"allreduce": 2 * (n - 1) / n, "allgather": (n - 1) / n,
+              "reducescatter": (n - 1) / n}.get(op, 1.0)
+    return nbytes / (ms * 1e-3) / 1e9 * factor
+
+
+def integer_values(devices, numel, seed):
+    """Integer-valued fp32 in [-3, 3] (zeros included), one tensor of
+    ``numel`` per card: every sum, max, min and product of four is exact
+    in fp32."""
+    import torch
+
+    gen = torch.Generator(device=devices[0]).manual_seed(seed)
+    return [torch.randint(-3, 4, (numel,), generator=gen,
+                          device=devices[0]).float().to(d)
+            for d in devices]
+
+
+def _rows_same_bits(got, want, what):
+    """Each rank's tensor (on its card) bit-equal to the plain version's
+    row (on the host)."""
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not _same_bits(g.cpu(), w)]
+    if bad:
+        raise AssertionError(f"{what}: ranks {bad} differ from the plain "
+                             "version")
+
+
+def drive_mesh_group(group, devices, seed=21):
+    """Every op of a mesh group over ``devices`` once, held against its
+    plain version: allreduce of SUM, MAX, MIN and PRODUCT and reduce on
+    integer-valued fp32 (exact), broadcast from each rank, allgather and
+    every permutation of ``mesh_perms`` on the main-path activation
+    (bit-exact), reducescatter of integer-valued fp32 (exact), barrier.
+    K4's count is set to 0 just before and read just after.  Then each
+    op timed (``cards_ms``) with its bus GB/s."""
+    import torch
+
+    from ray_tpu_torch.ops.cuda.remote_copy import remote_copy
+    from ray_tpu_torch.util.collective.collective_group import (
+        mesh_group as mg)
+    from ray_tpu_torch.util.collective.types import ReduceOp
+
+    n = len(devices)
+    acts = [x.to(d) for x, d in zip(activation_shards(
+        device=devices[0], n=n, seed=seed), devices)]
+    ints = integer_values(devices, MESH_GROUP_INT_NUMEL, seed + 1)
+    scatter_in = [x.view(n, -1) for x in ints]
+    perms = mesh_perms(n)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    remote_copy.launches = 0
+    for op in MESH_GROUP_REDUCE_OPS:
+        want = mg.allreduce_plain(ints, ReduceOp(op))
+        _rows_same_bits(group.allreduce(ints, ReduceOp(op)), [want] * n,
+                        f"allreduce {op}")
+    _rows_same_bits(group.reduce(ints, 0), [mg.allreduce_plain(ints)] * n,
+                    "reduce")
+    for src in range(n):
+        _rows_same_bits(group.broadcast(acts, src),
+                        mg.broadcast_plain(acts, src), f"broadcast {src}")
+    _rows_same_bits(group.allgather(acts), [mg.allgather_plain(acts)] * n,
+                    "allgather")
+    _rows_same_bits(group.reducescatter(scatter_in),
+                    mg.reducescatter_plain(scatter_in), "reducescatter")
+    group.barrier()
+    for perm in perms:
+        _rows_same_bits(group.permute(acts, perm),
+                        mg.permute_plain(acts, perm), f"permute {perm}")
+    for d in devices:
+        torch.cuda.synchronize(d)
+    launches = remote_copy.launches
+    pairs = sum(len(p) for p in perms)
+    if launches != pairs:
+        raise AssertionError(f"mesh group: K4 launched {launches} times for "
+                             f"{pairs} permute pairs")
+    act_bytes = acts[0].numel() * acts[0].element_size()
+    int_bytes = ints[0].numel() * 4
+    timed = {
+        "allreduce_sum": ("allreduce", int_bytes,
+                          lambda: group.allreduce(ints)),
+        "broadcast": ("broadcast", act_bytes,
+                      lambda: group.broadcast(acts, 0)),
+        "allgather": ("allgather", n * act_bytes,
+                      lambda: group.allgather(acts)),
+        "reducescatter": ("reducescatter", int_bytes,
+                          lambda: group.reducescatter(scatter_in)),
+        "permute_ring1": ("permute", act_bytes,
+                          lambda: group.permute(acts, perms[0]))}
+    ops = {}
+    for name, (op, nbytes, fn) in timed.items():
+        ms = cards_ms(fn, devices)
+        ops[name] = {"ms": ms, "payload_bytes": nbytes,
+                     "bus_gbps": bus_gbps(op, nbytes, n, ms)}
+    return {"ranks": n, "devices": [str(d) for d in devices],
+            "activation": list(ACTIVATION), "activation_dtype": "bfloat16",
+            "int_numel": MESH_GROUP_INT_NUMEL,
+            "checked": {"allreduce": list(MESH_GROUP_REDUCE_OPS),
+                        "reduce": True, "broadcast_sources": n,
+                        "allgather": True, "reducescatter": True,
+                        "barrier": True,
+                        "permutes": [list(map(list, p)) for p in perms]},
+            "exact": "every op bit-equal to its plain version",
+            "k4_launches": launches, "k4_pairs": pairs, "ops": ops}
+
+
+def mesh_perms(n):
+    """The permutations a mesh group of ``n`` ranks is held to: ring
+    shifts 1 and 3 (over one rank, the rank onto itself) and, over four,
+    ``MESH_GROUP_PARTIAL``."""
+    if n == 1:
+        return [((0, 0),)]
+    perms = [tuple((i, (i + s) % n) for i in range(n)) for s in RING_SHIFTS]
+    return perms + ([MESH_GROUP_PARTIAL] if n == 4 else [])
+
+
+class MeshOwner:
+    """The compiled DAG's mesh owner (``mesh_group``, ``mesh_group4``): one
+    actor process whose cards are the ranks of its mesh group
+    (``allreduce.bind([s], backend="mesh")``)."""
+
+    def __init__(self, numel):
+        self.numel = numel
+
+    def shards(self, step):
+        """Card i's value ``i + 1 + step``, on card i."""
+        import torch
+
+        return [torch.full((self.numel,), float(i + 1 + step),
+                           device=f"cuda:{i}")
+                for i in range(torch.cuda.device_count())]
+
+    def consume(self, reduced):
+        """What reached this method: live tensors, their cards and
+        values, and the group's class under its supervision wrapper."""
+        import torch
+
+        from ray_tpu_torch.util.collective.collective import _group_mgr
+
+        return {"tensors": all(isinstance(t, torch.Tensor)
+                               for t in reduced),
+                "devices": [str(t.device) for t in reduced],
+                "min_max": [[float(t.min()), float(t.max())]
+                            for t in reduced],
+                "groups": sorted({type(g._inner).__name__
+                                  for g in _group_mgr._groups.values()})}
+
+
+def dag_mesh_owner(execs=MESH_GROUP_DAG_EXECS):
+    """``shards -> allreduce(backend="mesh") -> consume`` compiled over one
+    ``MeshOwner`` on the card, which sees every card: each execution's
+    reduced value must reach ``consume`` as one CUDA tensor per card, each
+    equal to the exact sum."""
+    from ray_tpu_torch import actor
+    from ray_tpu_torch.dag import InputNode, allreduce
+
+    t0 = time.perf_counter()
+    owner = actor.ActorClass(MeshOwner).remote(MESH_GROUP_DAG_NUMEL)
+    try:
+        actor.get(owner._ready, timeout=300)
+        startup_s = time.perf_counter() - t0
+        with InputNode() as inp:
+            (r,) = allreduce.bind([owner.shards.bind(inp)], backend="mesh")
+            dag = owner.consume.bind(r)
+        cdag = dag.experimental_compile(submit_timeout=300)
+        try:
+            outs, exec_ms = [], []
+            for step in range(execs):
+                t1 = time.perf_counter()
+                outs.append(cdag.execute(step).get(timeout=300))
+                exec_ms.append(1e3 * (time.perf_counter() - t1))
+        finally:
+            cdag.teardown()
+    finally:
+        actor.kill(owner)
+    n = len(outs[0]["devices"])
+    for step, out in enumerate(outs):
+        want = n * (n + 1) / 2 + n * step
+        if not out["tensors"] or out["devices"] != [
+                f"cuda:{i}" for i in range(n)] or any(
+                mm != [want, want] for mm in out["min_max"]) or                 out["groups"] != ["CudaMeshGroup"]:
+            raise AssertionError(f"dag mesh owner execution {step}: {out}, "
+                                 f"expected {want} on each of {n} cards")
+    return {"cards": n, "executions": execs,
+            "numel_per_card": MESH_GROUP_DAG_NUMEL, "dtype": "float32",
+            "owner_startup_s": startup_s, "exec_ms": exec_ms,
+            "exact": True, "group": outs[0]["groups"][0]}
+
+
+def phase_mesh_group(device="cuda:0"):
+    """The single-process group through the collective front on one card
+    (``init_collective_group(1, 0, backend="mesh")``, world 1): every op
+    against its plain version, ``permute [(0, 0)]`` as one K4 hop
+    (``drive_mesh_group``), then the DAG mesh owner."""
+    import torch
+
+    from ray_tpu_torch.util.collective import collective as coll
+
+    name = "chip_mesh_group"
+    coll.init_collective_group(1, 0, backend="mesh", group_name=name,
+                               devices=[device])
+    try:
+        group = coll._group_mgr.get(name)
+        out = drive_mesh_group(group, [torch.device(device)])
+        out["group"] = type(group._inner).__name__
+    finally:
+        coll.destroy_collective_group(name)
+    out["dag_mesh_owner"] = dag_mesh_owner()
+    return out
+
+
+def layer_grads(devices, seed=31):
+    """One Llama-2-7B layer's gradient leaves in fp32 (random, from
+    ``seed``), one copy of each per card: {name: [tensor per card]}."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama2_7b()
+    h, m = cfg.hidden_size, cfg.mlp_dim
+    shapes = {"wq": (h, h), "wk": (h, h), "wv": (h, h), "wo": (h, h),
+              "w_gate": (h, m), "w_up": (h, m), "w_down": (m, h),
+              "attn_norm": (h,), "mlp_norm": (h,)}
+    out = {}
+    for name, shape in shapes.items():
+        leaves = []
+        for d in devices:
+            gen = torch.Generator(device=d).manual_seed(seed)
+            seed += 1
+            leaves.append(torch.randn(shape, generator=gen, device=d))
+        out[name] = leaves
+    return out
+
+
+def fp32_sum_misses(got, shards):
+    """Elements of ``got`` (tensors of the sum's shape) outside the fp32
+    summation bound of the host's sum of ``shards``: two sums of n terms
+    in any order differ by at most 2 (n - 1) 2^-24 sum |x_i|."""
+    import torch
+
+    n = len(shards)
+    host = [s.cpu() for s in shards]
+    want = host[0].clone()
+    mags = host[0].abs()
+    for x in host[1:]:
+        want += x
+        mags += x.abs()
+    bound = 2 * (n - 1) * 2.0 ** -24 * mags
+    misses = 0
+    for g in got:
+        g = g.cpu()
+        if g.shape != want.shape:
+            raise AssertionError(f"a sum of shape {tuple(g.shape)}, "
+                                 f"expected {tuple(want.shape)}")
+        misses += int(((g - want).abs() > bound).sum())
+    return misses
+
+
+def phase_mesh_group4():
+    """One process owns four cards (``init_collective_group(1, 0,
+    backend="mesh")`` over every visible card): ``drive_mesh_group`` on
+    the four (permute rings 1 and 3 and a partial permutation,
+    broadcast from each card and allgather on the activation,
+    bit-exact; the reductions exact; K4 launches equal to the pairs),
+    allreduce SUM and reducescatter of one Llama-2-7B layer's fp32
+    gradient leaves against the host's fp32 sum, K4 per peer hop beside
+    ``copy_`` between the same cards, and the DAG mesh owner over the
+    four cards."""
+    import torch
+
+    from ray_tpu_torch.util.collective import collective as coll
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    name = "chip_mesh_group4"
+    coll.init_collective_group(1, 0, backend="mesh", group_name=name)
+    try:
+        group = coll._group_mgr.get(name)
+        devices = list(group.devices)
+        if len(devices) != n or group.world_size != n:
+            raise AssertionError(f"mesh group over {devices}, {n} cards")
+        out = drive_mesh_group(group, devices)
+        grads = layer_grads(devices)
+        leaves = list(grads.values())
+        nbytes = sum(v[0].numel() * 4 for v in leaves)
+        reduced = [group.allreduce(v) for v in leaves]
+        scattered = [group.reducescatter([t.view(n, -1) for t in v])
+                     for v in leaves]
+        misses = {"allreduce": 0, "reducescatter": 0}
+        for v, r, sc in zip(leaves, reduced, scattered):
+            misses["allreduce"] += fp32_sum_misses(r, v)
+            rows = [x.view(n, -1) for x in v]
+            for i in range(n):
+                misses["reducescatter"] += fp32_sum_misses(
+                    [sc[i]], [x[i] for x in rows])
+        del reduced, scattered
+        ar_ms = cards_ms(lambda: [group.allreduce(v) for v in leaves],
+                         devices, iters=3)
+        rs_ms = cards_ms(lambda: [group.reducescatter(
+            [t.view(n, -1) for t in v]) for v in leaves], devices, iters=3)
+        out["layer_grads"] = {
+            "model": "llama2_7b", "leaves": list(grads),
+            "bytes_per_card": nbytes, "dtype": "float32",
+            "tolerance": "2 (n-1) 2^-24 sum|x_i| per element (fp32 sums "
+                         "of n terms in two orders)",
+            "elements_outside": misses,
+            "allreduce_ms": ar_ms,
+            "allreduce_bus_gbps": bus_gbps("allreduce", nbytes, n, ar_ms),
+            "reducescatter_ms": rs_ms,
+            "reducescatter_bus_gbps": bus_gbps("reducescatter", nbytes, n,
+                                               rs_ms)}
+        del grads, leaves
+        if any(misses.values()):
+            raise AssertionError(f"mesh_group4 layer grads: {misses}")
+    finally:
+        coll.destroy_collective_group(name)
+    torch.cuda.empty_cache()
+    acts = activation_shards(n=n, seed=23)
+    out["k4_peer_hops"] = {}
+    for i, j in mesh_perms(n)[0]:
+        src = acts[i].to(devices[i])
+        dst = torch.empty_like(src, device=devices[j])
+        hop = k4_hop_ms([src], [dst])
+        out["k4_peer_hops"][f"{i}->{j}"] = {
+            k: hop[k] for k in ("ms", "ms_again", "copy_kernel_ms",
+                                "wait_kernel_ms", "plain_ms", "library_ms",
+                                "hop_wall_ms")}
+    out["dag_mesh_owner"] = dag_mesh_owner()
+    if out["dag_mesh_owner"]["cards"] != n:
+        raise AssertionError(f"dag mesh owner over "
+                             f"{out['dag_mesh_owner']['cards']} cards")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def mesh_group4_or_why():
+    import torch
+
+    if torch.cuda.device_count() < MESH4_RANKS:
+        return {"ran": False, "why": (
+            f"{torch.cuda.device_count()} card(s) present; the phase needs "
+            f"{MESH4_RANKS}")}
+    return phase_mesh_group4()
 
 
 def small_model(device="cuda"):
@@ -4418,7 +4812,8 @@ def mesh4_body():
     from ray_tpu_torch.ops.attention import ring_attention
     from ray_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
     from ray_tpu_torch.parallel import (MeshConfig, create_mesh,
-                                        ensure_process_group)
+                                        ensure_process_group,
+                                        redistribute_capture)
 
     ensure_process_group()
     host = dist.new_group(backend="gloo")  # a barrier that runs no kernel
@@ -4444,9 +4839,10 @@ def mesh4_body():
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, SEQ + 1),
                                          generator=gen, device=dev)}
         losses = []
-        for _ in range(MESH_WARMUP):
-            state, m = tr.step(state, batch)
-            losses.append(float(m["loss"]))
+        with redistribute_capture() as implicit:
+            for _ in range(MESH_WARMUP):
+                state, m = tr.step(state, batch)
+                losses.append(float(m["loss"]))
         before = _launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4474,6 +4870,8 @@ def mesh4_body():
             "tokens_per_s": rows * SEQ / step_s, "losses": losses,
             "grad_norm": float(m["grad_norm"]),
             "k1_k2_k3_per_step": launched, "peak_memory_gb": peak,
+            "implicit_redistributes": implicit["count"],
+            "implicit_redistribute_lines": implicit["lines"][:4],
             "param_types": sorted({type(t).__name__ for t in
                                    state["params"]["layers"].values()})}
         del tr, state, batch
@@ -4513,7 +4911,11 @@ def phase_mesh4(world=MESH4_RANKS, timeout=MESH4_TIMEOUT_S):
     import socket
 
     from ray_tpu_torch._private import worker_zygote
+    from ray_tpu_torch.parallel import ensure_collective_overlap
 
+    # the ranks read the overlap set at their CUDA and NCCL init; inert
+    # unless RAY_TPU_COLLECTIVE_OVERLAP=1
+    overlap = ensure_collective_overlap()
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -4559,6 +4961,11 @@ def phase_mesh4(world=MESH4_RANKS, timeout=MESH4_TIMEOUT_S):
                 raise AssertionError(f"mesh4 {name}: losses {run['losses']}")
             if run["param_types"] != ["DTensor"]:
                 raise AssertionError(f"mesh4 {name}: {run['param_types']}")
+            if run["implicit_redistributes"]:
+                raise AssertionError(
+                    f"mesh4 {name} rank {rank}: "
+                    f"{run['implicit_redistributes']} implicit "
+                    f"redistributes: {run['implicit_redistribute_lines']}")
         if out["ring"]["elements_over_tol"]:
             raise AssertionError(f"mesh4 ring rank {rank}: {out['ring']}")
     return {"ranks": world, "layers": L, "phase_s":
@@ -4566,6 +4973,10 @@ def phase_mesh4(world=MESH4_RANKS, timeout=MESH4_TIMEOUT_S):
             "step_ms_by_rank": {name: [got[r][name]["step_ms"]
                                        for r in sorted(got)]
                                 for name in MESH4_MESHES},
+            "implicit_redistributes_by_rank": {
+                name: [got[r][name]["implicit_redistributes"]
+                       for r in sorted(got)] for name in MESH4_MESHES},
+            "collective_overlap": overlap,
             "ring_max_abs_err_by_rank": [got[r]["ring"]["max_abs_err_vs_k1"]
                                          for r in sorted(got)]}
 
@@ -7422,12 +7833,17 @@ def main(argv) -> int:
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
     if set(argv) - FOUR_CARD_PHASES - DATA_PHASES - SERVING_PHASES \
-            - RL_PHASES - TIERED_PHASES - DAG_PHASES - {"startup"}:
+            - RL_PHASES - TIERED_PHASES - DAG_PHASES - {"startup",
+                                                        "mesh_group"}:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     smi = phase_env()
     if argv:
         if "startup" in argv:
             emit({"phase": "startup", **phase_startup()})
+        if "mesh_group" in argv:
+            emit({"phase": "mesh_group", **phase_mesh_group()})
+        if "mesh_group4" in argv:
+            emit({"phase": "mesh_group4", **mesh_group4_or_why()})
         if "serve_mesh4" in argv:
             cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
                                       param_dtype=torch.bfloat16)
@@ -7531,6 +7947,10 @@ def main(argv) -> int:
     emit({"phase": "channel", **phase_channel()})
     ring = phase_ring()
     emit({"phase": "ring", **ring})
+    mesh_group = phase_mesh_group()
+    emit({"phase": "mesh_group", **mesh_group})
+    mesh_group4 = mesh_group4_or_why()
+    emit({"phase": "mesh_group4", **mesh_group4})
 
     cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
                               param_dtype=torch.bfloat16)
@@ -7848,7 +8268,11 @@ def main(argv) -> int:
          "source": source + "remote_copy.cu",
          "replaces": "ray_tpu/experimental/channel/transport.py:285",
          "design": k4["design"], "launches": ring["k4_launches"],
-         "launches_by_path": {"ring": ring["k4_launches"], **serving(3),
+         "launches_by_path": {"ring": ring["k4_launches"],
+                              "mesh_group": mesh_group["k4_launches"],
+                              **({"mesh_group4": mesh_group4["k4_launches"]}
+                                 if "k4_launches" in mesh_group4 else {}),
+                              **serving(3),
                               **dag_launches(dag_fwd, dag_pipe, dag4, 3),
                               **health_pings, **rl_launches_by_path(rl, 3),
                               **tiered_launches_by_path(tiered, 3)},

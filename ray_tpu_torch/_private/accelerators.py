@@ -3,9 +3,17 @@
 demand is ``ScalingConfig.worker_resources()``'s ``"GPU"``, as the
 reference's ``num_gpus`` option maps to it).
 
-The reference counts TPU chips from ``/dev/accel*`` (or through jax);
-the port counts CUDA devices through ``torch.cuda.device_count()``,
-which honours ``CUDA_VISIBLE_DEVICES``, and probes nothing else.
+The reference counts TPU chips from ``/dev/accel*`` (or through jax,
+the probe of ``ray_tpu/_private/node.py``); the port counts CUDA devices
+through ``torch.cuda.device_count()`` (``detect_gpus``), which honours
+``CUDA_VISIBLE_DEVICES``.  The reference's ``detect_resources``,
+``detect_labels`` and ``set_visible_chips``
+(``ray_tpu/_private/accelerators.py:114``) have their counterparts here:
+the card type as a resource and a label (``GPU-H100``, as the reference
+gives ``TPU-v5litepod``), each card's peers (the cards it can reach as a
+peer, over NVLink on an H100 board, from
+``torch.cuda.can_device_access_peer``), and ``CUDA_VISIBLE_DEVICES`` for
+a worker's set of cards.
 
 Every port process on one machine is one node, so the unit the health
 plane judges and a worker group places ranks on is smaller: the card a
@@ -27,6 +35,60 @@ def detect_gpus() -> int:
     if not torch.cuda.is_available():
         return 0
     return torch.cuda.device_count()
+
+
+#: the variable that narrows a process to a set of cards
+ENV_VISIBLE = "CUDA_VISIBLE_DEVICES"
+
+
+def accelerator_type() -> str:
+    """The card type from card 0's name ("NVIDIA H100 80GB HBM3" ->
+    "H100"), or "" without CUDA."""
+    if not detect_gpus():
+        return ""
+    words = torch.cuda.get_device_name(0).split()
+    if words and words[0].upper() == "NVIDIA":
+        words = words[1:]
+    return words[0] if words else ""
+
+
+def detect_resources() -> Dict[str, float]:
+    """This node's accelerator resources: ``{"GPU": n, "GPU-<type>": n}``
+    (empty without a card)."""
+    n = detect_gpus()
+    if not n:
+        return {}
+    out = {"GPU": float(n)}
+    kind = accelerator_type()
+    if kind:
+        out[f"GPU-{kind}"] = float(n)
+    return out
+
+
+def peer_cards(index: int, count: Optional[int] = None) -> List[int]:
+    """The cards card ``index`` can access as a peer."""
+    count = detect_gpus() if count is None else count
+    return [j for j in range(count)
+            if j != index and torch.cuda.can_device_access_peer(index, j)]
+
+
+def detect_labels() -> Dict[str, str]:
+    """This node's topology labels: the card type and count, and per card
+    its peers (``gpu-peers-<i>``: a comma list, "" for none); empty
+    without a card."""
+    n = detect_gpus()
+    if not n:
+        return {}
+    out = {"gpu-type": accelerator_type(), "gpu-count": str(n)}
+    for i in range(n):
+        out[f"gpu-peers-{i}"] = ",".join(str(j) for j in peer_cards(i, n))
+    return out
+
+
+def set_visible_chips(env: Dict[str, str], chip_ids: List[int]) -> None:
+    """Narrow a worker to ``chip_ids`` (its environment's
+    ``CUDA_VISIBLE_DEVICES``)."""
+    env[ENV_VISIBLE] = ",".join(str(i) for i in chip_ids)
 
 
 def _detect_memory_bytes() -> int:

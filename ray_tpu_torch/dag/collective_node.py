@@ -12,9 +12,13 @@ Usage (one output node per input, each bound to the same actor)::
 
 Execution model: at compile time the DAG's actors are joined into a
 collective group (``util.collective.create_collective_group``): backend
-``"tcp"`` (gloo, host tensors; the default) or ``"nccl"`` (one card per
-actor process).  Inside each actor's exec loop the collective task calls
-the group's op with its local value.  Overlap: the exec loop launches the
+``"tcp"`` (gloo, host tensors; the default), ``"nccl"`` (one card per
+actor process) or ``"mesh"`` (also ``"xla_mesh"``: ONE actor whose cards
+are the ranks, ``CudaMeshGroup``; its value is a ``[world, ...]`` stack
+or a list of per-card tensors, its result a list of per-card tensors
+handed to the next method in the process; ``devices=`` names the ranks,
+every card the actor sees by default).  Inside each actor's exec loop
+the collective task calls the group's op with its local value.  Overlap: the exec loop launches the
 collective on a background thread and joins it at the first task that
 consumes its result, so independent compute between the op and its
 consumer runs while it communicates.
@@ -36,7 +40,8 @@ class _CollectiveGroup:
     """One joint operation over N actor-resident values."""
 
     def __init__(self, inputs: List[ClassMethodNode], op: str,
-                 backend: str, timeout_s: Optional[float] = None):
+                 backend: str, timeout_s: Optional[float] = None,
+                 devices: Optional[List[Any]] = None):
         if not inputs:
             raise ValueError("collective bind() needs at least one node")
         for n in inputs:
@@ -53,8 +58,10 @@ class _CollectiveGroup:
 
         self.inputs = list(inputs)
         self.op = op
-        # an unknown backend, or JAX's ("xla", "xla_mesh"), fails here
+        # an unknown backend, or JAX's "xla", fails here
         self.backend = Backend.parse(backend).value
+        # a mesh group's ranks (None: every card of the actor's process)
+        self.devices = None if devices is None else [str(d) for d in devices]
         # threaded into the supervised group at compile time: a rank
         # whose upstream failed leaves its peers to fail THIS iteration
         # at the group's op timeout, not hang the exec loops
@@ -97,7 +104,8 @@ class _CollectiveBinder:
 
     def bind(self, nodes: List[ClassMethodNode], *, op: str = "sum",
              backend: str = "tcp", timeout_s: Optional[float] = None,
-             transport: Optional[Any] = None) -> List[CollectiveNode]:
+             transport: Optional[Any] = None,
+             devices: Optional[List[Any]] = None) -> List[CollectiveNode]:
         del transport  # custom Communicators select via backend string
         if self.kind == "allreduce":
             if op not in ("sum", "prod", "min", "max"):
@@ -107,7 +115,8 @@ class _CollectiveBinder:
             kind = f"allreduce_{op}"
         else:
             kind = self.kind
-        group = _CollectiveGroup(nodes, kind, backend, timeout_s=timeout_s)
+        group = _CollectiveGroup(nodes, kind, backend, timeout_s=timeout_s,
+                                 devices=devices)
         return [CollectiveNode(group, i) for i in range(len(nodes))]
 
 

@@ -767,7 +767,7 @@ class CompiledDAG:
             _coll.create_collective_group(
                 [inp.actor for inp in group.inputs], group.world_size,
                 backend=group.backend, group_name=group.group_name,
-                timeout_s=getattr(group, "timeout_s", None))
+                timeout_s=group.timeout_s, devices=group.devices)
 
         # start exec loops
         start_refs = [handle._remote_call.remote(

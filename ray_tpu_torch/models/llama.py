@@ -505,12 +505,42 @@ def llama_apply(params: Dict[str, Any], tokens: torch.Tensor,
     return lm_head(params, cfg, x, mesh=mesh, rules=rules)
 
 
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0]
+
+
 def next_token_nll(logits: torch.Tensor,
                    tokens: torch.Tensor) -> torch.Tensor:
     """Per-position cross-entropy [b, s - 1] in fp32 of ``logits`` (of
-    ``tokens[:, :-1]``) against the next tokens ``tokens[:, 1:]``."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
+    ``tokens[:, :-1]``) against the next tokens ``tokens[:, 1:]``.
+
+    DTensor logits go per local shard (``local_map``), the targets
+    redistributed to the logits' batch and sequence layout and the
+    logits' vocab gathered: the gather's backward would otherwise reshard
+    its zero-filled gradient implicitly (``RAY_TPU_LEGACY_SHARDING=1``
+    keeps the global gather)."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.sharding import (as_global,
+                                                 legacy_sharding_enabled)
+
+    if not isinstance(logits, DTensor) or legacy_sharding_enabled():
+        return _nll(logits, tokens[:, 1:])
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    layout = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+              for p in logits.placements]
+    if list(logits.placements) != layout:
+        logits = logits.redistribute(mesh, layout)
+    targets = as_global(tokens, mesh)[:, 1:]
+    if list(targets.placements) != layout:
+        targets = targets.redistribute(mesh, layout)
+    return local_map(_nll, out_placements=layout,
+                     in_placements=(layout, layout),
+                     device_mesh=mesh)(logits, targets)
 
 
 def llama_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
@@ -524,7 +554,39 @@ def llama_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     mask = batch.get("mask")
     if mask is not None:
         mask = _constrain(mask, mesh, "batch", rules=rules)[:, 1:].float()
-        loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        total, count = _masked_sums(nll, mask)
+        loss = total / count.clamp_min(1.0)
     else:
         loss = nll.mean()
     return _constrain(loss, mesh, rules=rules)
+
+
+def _masked_sums(nll: torch.Tensor, mask: torch.Tensor):
+    """``sum(nll * mask)`` and ``sum(mask)``.  DTensors go per local shard
+    (``local_map``: the mask redistributed to the nll's layout, partial
+    sums over the sharded mesh dims), then replicated explicitly;
+    DTensor's own sum and product would reshard the gradient of the
+    product and the sum of the mask implicitly
+    (``RAY_TPU_LEGACY_SHARDING=1`` keeps them)."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.sharding import (as_global,
+                                                 legacy_sharding_enabled)
+
+    if not isinstance(nll, DTensor) or legacy_sharding_enabled():
+        return (nll * mask).sum(), mask.sum()
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = nll.device_mesh
+    layout = list(nll.placements)
+    mask = as_global(mask, mesh)
+    if list(mask.placements) != layout:
+        mask = mask.redistribute(mesh, layout)
+    sums = [Partial() if isinstance(p, Shard) else Replicate()
+            for p in layout]
+    total, count = local_map(
+        lambda n, m: ((n * m).sum(), m.sum()), out_placements=(sums, sums),
+        in_placements=(layout, layout), device_mesh=mesh)(nll, mask)
+    whole = [Replicate()] * mesh.ndim
+    return total.redistribute(mesh, whole), count.redistribute(mesh, whole)

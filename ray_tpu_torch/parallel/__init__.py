@@ -20,11 +20,20 @@ from ray_tpu_torch.parallel.mesh import (  # noqa: F401
     mesh_shape_for,
     resolve_mesh_config,
 )
+from ray_tpu_torch.parallel.overlap import (  # noqa: F401
+    OVERLAP_CUDA_FLAGS,
+    ensure_collective_overlap,
+    overlap_active,
+)
 from ray_tpu_torch.parallel.pipeline import (  # noqa: F401
     pipeline_apply,
     pipeline_microbatches,
     pp_size,
     reject_pp,
+)
+from ray_tpu_torch.parallel.redistributes import (  # noqa: F401
+    count_implicit_redistributes,
+    redistribute_capture,
 )
 from ray_tpu_torch.parallel.sharding import (  # noqa: F401
     DEFAULT_RULES,

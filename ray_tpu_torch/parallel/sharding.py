@@ -176,24 +176,48 @@ def as_global(x: torch.Tensor, mesh: DeviceMesh) -> DTensor:
                               run_check=False)
 
 
+class _GradLayout(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to
+    ``placements``: the cotangent half of a constraint.  DTensor's
+    ``redistribute`` sends the gradient back in whatever layout it
+    arrives (a ``Partial`` sum, say), and the next op's backward then
+    reshards its operands implicitly; JAX's sharding constraint pins the
+    cotangent to the same sharding as the value."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g, None, None
+
+
 def with_logical_constraint(x: torch.Tensor, mesh: Optional[DeviceMesh],
                             *axes: Optional[str],
                             rules: Optional[LogicalAxisRules] = None
                             ) -> torch.Tensor:
     """Pin an intermediate value's layout by LOGICAL axis names resolved
     through the rule table: a ``redistribute`` (differentiable), so the
-    table that shards the params decides the activation layout too.
-    ``mesh=None`` is the identity, so model code stays mesh-optional; a
-    plain tensor under a mesh is taken as the global value
-    (``as_global``)."""
+    table that shards the params decides the activation layout too, and
+    the gradient's layout in the backward pass, as JAX's constraint pins
+    the cotangent (``RAY_TPU_LEGACY_SHARDING=1`` leaves the gradient
+    as it comes).  ``mesh=None`` is the identity, so model code stays
+    mesh-optional; a plain tensor under a mesh is taken as the global
+    value (``as_global``)."""
     if mesh is None:
         return x
     mesh = compute_mesh(mesh)
     x = as_global(x, mesh)
     placements = logical_to_placements(axes, rules, mesh=mesh)
-    if tuple(x.placements) == placements:
-        return x
-    return x.redistribute(mesh, placements)
+    if tuple(x.placements) != placements:
+        x = x.redistribute(mesh, placements)
+    if x.requires_grad and not legacy_sharding_enabled():
+        x = _GradLayout.apply(x, mesh, placements)
+    return x
 
 
 def with_named_sharding(x: torch.Tensor, mesh: DeviceMesh,

@@ -1,7 +1,8 @@
-"""Out-of-band collectives between worker processes (counterpart of
-``ray_tpu/util/collective/``): gloo for host tensors (``"tcp"``) and
-NCCL for device tensors (``"nccl"``), one rank per process, each group
-supervised (sequence numbers, flight recorder, watchdog abort)."""
+"""Out-of-band collectives (counterpart of ``ray_tpu/util/collective/``):
+gloo for host tensors (``"tcp"``) and NCCL for device tensors
+(``"nccl"``), one rank per process, and the cards of one process as the
+ranks (``"mesh"``, ``CudaMeshGroup``); each group supervised (sequence
+numbers, flight recorder, watchdog abort)."""
 
 from ray_tpu_torch.util.collective.collective import (  # noqa: F401
     allgather,
@@ -24,6 +25,9 @@ from ray_tpu_torch.util.collective.collective import (  # noqa: F401
 )
 from ray_tpu_torch.util.collective.collective_group.base_collective_group import (  # noqa: F401,E501
     BaseGroup,
+)
+from ray_tpu_torch.util.collective.collective_group.mesh_group import (  # noqa: F401,E501
+    CudaMeshGroup,
 )
 from ray_tpu_torch.util.collective.collective_group.torch_group import (  # noqa: F401,E501
     TorchDistributedGroup,

@@ -21,6 +21,7 @@ import logging
 import threading
 from typing import Any, Dict, List, Optional
 
+from ray_tpu_torch._private import accelerators
 from ray_tpu_torch.util.collective.supervision import (  # noqa: F401
     SupervisedGroup,
     drop_group_keys,
@@ -36,19 +37,35 @@ class GroupManager:
         self._lock = threading.Lock()
 
     def create(self, backend, world_size: int, rank: int, group_name: str,
-               timeout_s: Optional[float] = None):
-        from ray_tpu_torch.util.collective.collective_group.torch_group import (  # noqa: E501
-            TorchDistributedGroup,
-        )
-
+               timeout_s: Optional[float] = None, devices=None):
         backend = Backend.parse(backend)
         with self._lock:
             if group_name in self._groups:
                 raise RuntimeError(
                     f"collective group {group_name!r} already initialized"
                 )
-        inner = TorchDistributedGroup(world_size, rank, group_name,
-                                      backend=backend, timeout_s=timeout_s)
+        if backend is Backend.MESH:
+            # one PROCESS owning the cards: "ranks" are its cards, so the
+            # declared (process) world size must be 1
+            from ray_tpu_torch.util.collective.collective_group.mesh_group import (  # noqa: E501
+                CudaMeshGroup,
+            )
+
+            _refuse_multi_process_mesh(world_size)
+            cards = (accelerators.detect_gpus() if devices is None
+                     else len(devices))
+            inner = CudaMeshGroup(cards, 0, group_name, devices=devices)
+        else:
+            from ray_tpu_torch.util.collective.collective_group.torch_group import (  # noqa: E501
+                TorchDistributedGroup,
+            )
+
+            if devices is not None:
+                raise ValueError("devices= names a mesh group's ranks; a "
+                                 f"{backend.value} group has one per process")
+            inner = TorchDistributedGroup(world_size, rank, group_name,
+                                          backend=backend,
+                                          timeout_s=timeout_s)
         g = SupervisedGroup(inner, timeout_s=timeout_s,
                             backend=backend.value)
         with self._lock:
@@ -78,29 +95,43 @@ _group_mgr = GroupManager()
 logger = logging.getLogger(__name__)
 
 
+def _refuse_multi_process_mesh(world_size: int) -> None:
+    if world_size != 1:
+        raise ValueError(
+            "backend='mesh' (the reference's 'xla_mesh') is the "
+            "single-process fast path: exactly one participating process "
+            f"owns the cards (got world_size={world_size}); use "
+            "backend='nccl' for rank-per-process groups")
+
+
 def init_collective_group(
     world_size: int,
     rank: int,
     backend: str = "tcp",
     group_name: str = "default",
     timeout_s: Optional[float] = None,
+    devices: Optional[List[Any]] = None,
 ) -> None:
     """Initialize this process's membership in a collective group.
 
-    ``backend`` is ``"tcp"`` (also ``"gloo"``: host tensors) or
-    ``"nccl"`` (tensors on this process's card).  ``timeout_s`` bounds
-    rendezvous AND every op on this member (abort past it); default from
+    ``backend`` is ``"tcp"`` (also ``"gloo"``: host tensors), ``"nccl"``
+    (tensors on this process's card) or ``"mesh"`` (also ``"xla_mesh"``:
+    this one process's cards are the ranks, ``world_size`` must be 1;
+    ``devices`` names them, every visible card by default, or
+    ``["cpu"] * n`` for host ranks).  ``timeout_s`` bounds rendezvous AND
+    every op on this member (abort past it); default from
     ``RAY_TPU_TORCH_COLLECTIVE_TIMEOUT`` or 120 s.  Rendezvous goes
     through the run's KV (``RAY_TPU_TORCH_KV``).
     """
     _group_mgr.create(backend, world_size, rank, group_name,
-                      timeout_s=timeout_s)
+                      timeout_s=timeout_s, devices=devices)
 
 
-def _join(instance, world_size, rank, backend, group_name, timeout_s):
+def _join(instance, world_size, rank, backend, group_name, timeout_s,
+          devices=None):
     """``_remote_call`` body: join the group in the actor's process."""
     init_collective_group(world_size, rank, backend, group_name,
-                          timeout_s=timeout_s)
+                          timeout_s=timeout_s, devices=devices)
     return rank
 
 
@@ -118,13 +149,15 @@ def create_collective_group(
     backend: str = "tcp",
     group_name: str = "default",
     timeout_s: Optional[float] = None,
+    devices: Optional[List[Any]] = None,
 ) -> None:
     """Creator-side setup: make the process ``actors`` a collective group.
 
     Dispatches ``init_collective_group`` into every actor (through
     ``_remote_call``, so their classes need no special method) and waits
     until every rank has joined: ``"tcp"`` (gloo) for host tensors,
-    ``"nccl"`` for actors on one card each.  The wait is bounded: an actor
+    ``"nccl"`` for actors on one card each, ``"mesh"`` for ONE actor
+    whose cards (or ``devices``) are the ranks.  The wait is bounded: an actor
     that dies before joining fails the call within the timeout, and the
     partly formed group is torn down (joined ranks leave, rendezvous
     keys are dropped) so the name can be used again.
@@ -136,11 +169,12 @@ def create_collective_group(
     if len(actors) != len(ranks) or len(actors) != world_size:
         raise ValueError(
             f"{len(actors)} actors, {len(ranks)} ranks, world={world_size}")
-    Backend.parse(backend)
+    if Backend.parse(backend) is Backend.MESH:
+        _refuse_multi_process_mesh(world_size)
     op_timeout = resolve_timeout(timeout_s)
     try:
         refs = [a._remote_call.remote(_join, world_size, r, backend,
-                                      group_name, timeout_s)
+                                      group_name, timeout_s, devices)
                 for a, r in zip(actors, ranks)]
         # margin above the rendezvous timeout: the joins themselves must
         # be reached in each actor's call order

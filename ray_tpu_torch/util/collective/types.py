@@ -1,7 +1,8 @@
 """Collective types (counterpart of ``ray_tpu/util/collective/types.py``).
 
-The backends are ``torch.distributed``'s, one rank per process: gloo for
-host tensors and NCCL for device tensors.
+The rank-per-process backends are ``torch.distributed``'s: gloo for host
+tensors and NCCL for device tensors.  The mesh backend is one process
+owning several cards.
 """
 
 from __future__ import annotations
@@ -16,14 +17,17 @@ class Backend(str, enum.Enum):
       (the reference's TCP/GLOO role; also accepted as ``"gloo"``).
     - NCCL: device-memory collectives between worker processes, one card
       each, over NCCL (the role of the reference's XLA backend).
+    - MESH: the single-process fast path: ONE process owns several cards
+      and the group's ranks are its cards (``CudaMeshGroup``, the
+      reference's ``"xla_mesh"``; also accepted as ``"xla_mesh"``).
 
-    The reference's ``"xla"`` and ``"xla_mesh"`` name JAX's device
-    collectives, which the port does not have: they raise and name
-    ``"nccl"``.
+    The reference's ``"xla"`` names JAX's rank-per-process device
+    collectives: it raises and names ``"nccl"``.
     """
 
     TCP = "tcp"
     NCCL = "nccl"
+    MESH = "mesh"
 
     @staticmethod
     def parse(v) -> "Backend":
@@ -34,7 +38,9 @@ class Backend(str, enum.Enum):
             return Backend.TCP
         if v in ("nccl", "cuda", "gpu"):
             return Backend.NCCL
-        if v in ("xla", "ici", "tpu", "xla_mesh", "mesh"):
+        if v in ("mesh", "xla_mesh"):
+            return Backend.MESH
+        if v in ("xla", "ici", "tpu"):
             raise ValueError(
                 f"collective backend {v!r} is JAX's device plane; on the "
                 "GPU use backend='nccl' (one rank per process and card)")

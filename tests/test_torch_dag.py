@@ -2,12 +2,12 @@
 (``ray_tpu_torch.dag``, ``ray_tpu_torch.actor``).
 
 Every case of ``tests/test_dag.py`` on the port's actors, with the same
-graphs and the same expected values, except ``TestXlaMeshDagCollective``:
-its ``xla_mesh`` backend (one process owning a device mesh) waits for the
-single-process multi-card group, and its ``xla`` multi-actor cases are
-JAX's device plane, whose port is the ``nccl`` backend that only the card
-runs (``chip_smoke.py dag4``); here a case checks that both names are
-refused and point at ``nccl``.  Then the port's own: the actor's process
+graphs and the same expected values.  ``TestXlaMeshDagCollective``'s
+``xla_mesh`` cases run on the single-process multi-card group
+(``backend="mesh"``, ``CudaMeshGroup``) over host ranks; its ``xla``
+multi-actor cases are JAX's device plane, whose port is the ``nccl``
+backend that only the card runs (``chip_smoke.py dag4``), and here a case
+checks that ``xla`` is refused and points at ``nccl``.  Then the port's own: the actor's process
 lifecycle, ``create_collective_group`` over gloo, the endpoint probe, and
 a compiled-DAG forward of a tiny Llama in two stage processes
 (``chip_smoke.ForwardStage``) against JAX's ``llama_apply``.
@@ -91,6 +91,7 @@ def pool():
             jit=[spawn(A.JitWorker) for _ in range(2)],
             comm=[spawn(A.CommActor, r, 2, comm_name) for r in range(2)],
             sleepers=[spawn(A.Sleeper) for _ in range(5)],
+            mesh=spawn(A.MeshOwner),
             stages=[spawn(stage, tcfg, 0, 2, params=params),
                     spawn(stage, tcfg, 2, 4, params=params)],
             jcfg=jcfg, tcfg=tcfg, tree=tree, params=params)
@@ -449,13 +450,71 @@ class TestCollectiveDag:
 
     @pytest.mark.parametrize("backend", ["xla", "xla_mesh"])
     def test_jax_backends_refused_naming_nccl(self, pool, backend):
-        """The reference's ``TestXlaMeshDagCollective`` backends are JAX's
-        device plane: refused at bind, pointing at ``nccl``."""
+        """The reference's ``TestXlaMeshDagCollective`` backends over two
+        actors: ``xla`` is JAX's rank-per-process device plane, refused at
+        bind and pointing at ``nccl``; ``xla_mesh`` is the single-process
+        group, refused over two actors at compile as
+        ``test_xla_mesh_rejects_multi_actor`` expects."""
         a, b = _adders(pool, 1, 2)
         with InputNode() as inp:
-            with pytest.raises(ValueError, match="nccl"):
-                allreduce.bind([a.add.bind(inp), b.add.bind(inp)],
-                               backend=backend)
+            if backend == "xla":
+                with pytest.raises(ValueError, match="nccl"):
+                    allreduce.bind([a.add.bind(inp), b.add.bind(inp)],
+                                   backend=backend)
+                return
+            r0, r1 = allreduce.bind([a.add.bind(inp), b.add.bind(inp)],
+                                    backend=backend)
+            dag = MultiOutputNode([a.add.bind(r0), b.add.bind(r1)])
+        with pytest.raises(Exception, match="xla_mesh|world_size"):
+            compiled = dag.experimental_compile()
+            try:
+                compiled.execute(0).get(timeout=30)
+            finally:
+                compiled.teardown()
+
+
+class TestMeshDagCollective:
+    """The reference's ``TestXlaMeshDagCollective`` mesh-owner case: one
+    actor owns the group's ranks (eight host ranks here, as the
+    reference's eight CPU devices); the collective node's op is the mesh
+    group's allreduce, and the value reaches the next method in the
+    actor's process without a pickle."""
+
+    def test_in_process_mesh_allreduce_stays_in_process(self, pool):
+        from ray_tpu.util.collective.collective_group.xla_group import (
+            XlaMeshGroup)
+
+        want = float(np.asarray(XlaMeshGroup(8).allreduce(
+            np.arange(8, dtype=np.float32)[:, None]))[0])
+        assert want == 28.0  # sum 0..7
+        w = pool.mesh
+        with InputNode() as inp:
+            s = w.shards.bind(inp)
+            (r,) = allreduce.bind([s], backend="xla_mesh",
+                                  devices=["cpu"] * 8)
+            dag = w.consume.bind(r)
+        compiled = dag.experimental_compile()
+        try:
+            for i in range(2):  # two iterations: the group is reusable
+                value, ranks, groups = compiled.execute(i).get(timeout=60)
+                assert (value, ranks) == (want, 8)
+                assert "CudaMeshGroup" in groups, groups
+        finally:
+            compiled.teardown()
+
+    @pytest.mark.parametrize("op,want", [("max", 7.0), ("min", 0.0),
+                                         ("prod", 0.0)])
+    def test_mesh_allreduce_ops(self, pool, op, want):
+        w = pool.mesh
+        with InputNode() as inp:
+            (r,) = allreduce.bind([w.shards.bind(inp)], op=op,
+                                  backend="mesh", devices=["cpu"] * 8)
+            dag = w.consume.bind(r)
+        compiled = dag.experimental_compile()
+        try:
+            assert compiled.execute(0).get(timeout=60)[:2] == (want, 8)
+        finally:
+            compiled.teardown()
 
 
 def _single_spec(compiled):

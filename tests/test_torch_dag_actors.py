@@ -46,6 +46,28 @@ class Adder:
 
 
 @remote
+class MeshOwner:
+    """The reference's ``TestXlaMeshDagCollective`` mesh owner: one value
+    per rank of the group over its cards (host ranks in the tests),
+    stacked ``[ranks, 1]``."""
+
+    def shards(self, _x):
+        return torch.arange(8, dtype=torch.float32)[:, None]
+
+    def consume(self, reduced):
+        """The reduced value arrives as live tensors, one per rank (the
+        process's own objects, never pickled); returns rank 0's value and
+        the group classes under the supervision wrappers."""
+        from ray_tpu_torch.util.collective.collective import _group_mgr
+
+        assert isinstance(reduced, list), type(reduced)
+        assert all(isinstance(t, torch.Tensor) for t in reduced), reduced
+        groups = [type(g._inner).__name__
+                  for g in _group_mgr._groups.values()]
+        return float(reduced[0][0]), len(reduced), groups
+
+
+@remote
 class CommActor:
     """The reference's communicator actor, with a ``CudaCommunicator``
     on the same group beside its ``CpuCommunicator`` (its tensors land

@@ -993,3 +993,51 @@ def test_killed_stage_on_card_surfaces_actor_died():
     finally:
         for s in stages:
             actor.kill(s)
+
+
+@pytest.mark.gpu
+def test_mesh_group_on_the_cards_present():
+    """The single-process group over every card present (one or more):
+    each op against its plain version on integer-valued fp32 (exact) and
+    bf16 rows (bit-exact), and ``permute`` one K4 launch per pair,
+    bit-exact, zeros where no pair sends."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: permute is K4, which has no CPU "
+                    "or interpret mode, and the other ops are NCCL's")
+    from ray_tpu_torch.ops.cuda.remote_copy import remote_copy
+    from ray_tpu_torch.util.collective.collective_group import (
+        mesh_group as mg)
+    from ray_tpu_torch.util.collective.types import ReduceOp
+
+    n = torch.cuda.device_count()
+    group = mg.CudaMeshGroup(n)
+    devs = [torch.device("cuda", i) for i in range(n)]
+    assert group.devices == devs
+    gen = torch.Generator().manual_seed(3)
+    ints = [torch.randint(-3, 4, (n, 1000), generator=gen).float().to(d)
+            for d in devs]
+    rows = [torch.randn(4, 333, generator=gen).bfloat16().to(d)
+            for d in devs]
+
+    def same(got, want):
+        assert [t.device for t in got] == devs
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.uint8),
+                               w.cpu().view(torch.uint8))
+
+    for op in ("sum", "max", "min", "product"):
+        same(group.allreduce(ints, ReduceOp(op)),
+             [mg.allreduce_plain(ints, ReduceOp(op))] * n)
+    same(group.broadcast(rows, n - 1), mg.broadcast_plain(rows, n - 1))
+    same(group.allgather(rows), [mg.allgather_plain(rows)] * n)
+    same(group.reducescatter(ints), mg.reducescatter_plain(ints))
+    group.barrier()
+    perms = [[(i, (i + 1) % n) for i in range(n)], [(0, n - 1)]]
+    before = remote_copy.launches
+    for perm in perms:
+        got = group.permute(rows, perm)
+        same(got, mg.permute_plain(rows, perm))
+    assert remote_copy.launches - before == sum(len(p) for p in perms)
+    with pytest.raises(ValueError, match="lies on"):
+        group.allreduce([t.to(devs[0]) for t in ints[::-1]] if n > 1
+                        else [ints[0].cpu()])

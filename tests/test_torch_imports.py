@@ -210,3 +210,33 @@ def test_tiered_plane_sources_are_covered():
             "ray_tpu_torch/_private/config.py",
             "ray_tpu_torch/rl/weight_sync.py", "ray_tpu_torch/rl/rlhf.py"}
     assert want <= rel, sorted(want - rel)
+
+
+MESH_AND_ANALOGUE_MODULES = (
+    "ray_tpu_torch.util.collective.collective_group.mesh_group",
+    "ray_tpu_torch.parallel.redistributes", "ray_tpu_torch.parallel.overlap",
+    "ray_tpu_torch._private.accelerators")
+
+
+def test_mesh_group_and_tpu_analogue_sources_are_covered():
+    """The single-process multi-card group and the TPU-only pieces'
+    counterparts are among the sources checked for jax and ``ray_tpu``
+    imports."""
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    want = {m.replace(".", "/") + ".py" for m in MESH_AND_ANALOGUE_MODULES}
+    assert want <= rel, sorted(want - rel)
+
+
+def test_mesh_group_import_leaves_jax_and_reference_unloaded():
+    code = (
+        "import sys\n"
+        f"import {', '.join(MESH_AND_ANALOGUE_MODULES)}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ray_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

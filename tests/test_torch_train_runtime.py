@@ -277,9 +277,13 @@ def test_collective_types_match_the_reference():
         assert ttypes.Backend.parse(name) is ttypes.Backend.TCP
     for name in ("nccl", "cuda", "gpu"):
         assert ttypes.Backend.parse(name) is ttypes.Backend.NCCL
-    for name in ("xla", "xla_mesh", "tpu"):
+    for name in ("xla", "ici", "tpu"):
         with pytest.raises(ValueError, match="nccl"):
             ttypes.Backend.parse(name)
+    # the single-process group: the reference's "xla_mesh"
+    for name in ("mesh", "xla_mesh", "MESH"):
+        assert ttypes.Backend.parse(name) is ttypes.Backend.MESH
+        assert jtypes.Backend.parse(name) is jtypes.Backend.XLA_MESH
     with pytest.raises(ValueError, match="unknown"):
         ttypes.Backend.parse("mpi")
 
