@@ -16,9 +16,11 @@ runs ``train``, ``trainer`` and ``data_trainer``, ``data_vit`` runs
 ``vit_train`` and ``data_vit``; so do the serving front's:
 ``llm_server``, ``llm_disagg`` (after ``llm_server``) and
 ``llm_batch``; the RL stack's: ``rl_ppo``, ``rl_runners``,
-``rl_multi_agent`` and ``rl_families``; and the compiled-graph DAG's:
+``rl_multi_agent`` and ``rl_families``; the compiled-graph DAG's:
 ``dag_forward`` (after ``forward``) and ``dag_pipeline`` (after
-``train``).  With four cards ``dag4`` runs alone too.)
+``train``); ``serve_dag`` (after ``forward`` and ``dag_forward``);
+and ``channel`` and ``workflow``.  With four cards ``dag4`` runs alone
+too.)
 
 Phases, each printing one JSON line:
 
@@ -84,7 +86,19 @@ Phases, each printing one JSON line:
    same card lands each on the card with ``read_borrowed`` and sends back a
    digest of its bytes.  Both ends must negotiate the device tier from
    their own endpoint info, every frame must be a device frame, none may
-   degrade, and every segment is destroyed.
+   degrade, and every segment is destroyed.  Then the native data plane
+   (``ray_tpu_torch/_native/channel.cc``, built here with ``g++``): a
+   ping-pong of 3000 x 64 B between two threads and ten 16 MiB
+   ``write_bytes``/``read_bytes`` frames to a reader process, each on the
+   native plane and on the Python plane in turns (P N N P); every frame's
+   digest must match, and the phase fails unless the library built and
+   both ends of every native channel hold a native handle.
+4b. ``workflow``: a three-step durable workflow
+   (``ray_tpu_torch.workflow``): inputs from a seed, K1 at the
+   ``startup`` shape on the card, a last step that raises on the first
+   run.  ``resume`` must restore the first two steps and run the last,
+   K1 must launch once in all, and the output must equal an
+   uninterrupted run's bit for bit.
 5. ``ring``: ``device_ring_copy`` (the in-process device hop) moves the
    four ranks' activations around the ring, shifts 1 and 3; K4 must
    launch once per hop and the result must equal the shifted input.  The
@@ -105,7 +119,20 @@ Phases, each printing one JSON line:
    degraded frame, and K1 must launch 16 times per stage per execution,
    counted in the stage processes.  It prints the wall per execution
    beside the one-process forward, the channel wait per edge, the
-   stages' start-up, build and memory.
+   stages' start-up, build and memory, and per stage the ``channel_wait``
+   seconds of a step ledger held open over the timed executions and the
+   health plane's edge-latency table, whose every edge must count one
+   read per execution.
+6c. ``serve_dag``: a serve deployment reached through the HTTP proxy
+   whose constructor starts the same two ``ForwardStage`` actors and
+   compiles ``stage1.forward(stage0.forward(inp))``; eight requests, each
+   with its own 2048 tokens, at most four in flight.  Each answer (the
+   last position's logits and every position's argmax, as JSON) is held
+   to this process's ``llama_apply`` as ``dag_forward`` holds its
+   outputs; the replica's peak of requests in flight must be at least
+   two, and K1 must launch 16 times per stage per execution, counted in
+   the stage processes.  It prints the replica's start, each request's
+   end to end ms and the ms per execution beside ``dag_forward``'s.
 7. ``serve``: ``LLMEngine`` on the same model answers five ~200-token
    requests, two sharing a 64-token prefix (greedy, 32 new tokens); one
    decode window is profiled (busy ms as the union over streams, idle
@@ -344,8 +371,9 @@ Phases, each printing one JSON line:
 
 Then the ``kernels`` line (every ported kernel with its launches on its
 main path: K1, K2 and K3 in ``train``, K4 in ``ring``; the launches of
-every path that runs it, the DAG paths' counted in their stage
-processes, the trainer paths' counted in their workers,
+every path that runs it, the DAG paths' (``serve_dag``'s too) counted
+in their stage processes, ``workflow``'s in this process, the trainer
+paths' counted in their workers,
 0 on the serving and the RL paths (the RL paths' by the profiler),
 K1-K3 1 per step on ``trainer_tiered`` and 0 on ``rlhf`` (in its
 worker) and ``weight_sync_7b``, and K1-K3 at
@@ -552,6 +580,17 @@ RING_RANKS = 4
 RING_SHIFTS = (1, 3)
 RING_SPLIT_WARMUP, RING_SPLIT_RINGS = 2, 8
 CHANNEL_FRAMES = 10
+# the channel phase's native data plane: the ping-pong's messages and
+# their bytes, and the planes in the order they run (False: the Python
+# plane, True: the native one), in turns
+CHANNEL_PINGPONG = 3000
+CHANNEL_PINGPONG_BYTES = 64
+CHANNEL_PLANES = (False, True, True, False)
+# serve_dag: requests, each with its own tokens, and the most in flight
+# (the deployment's max_ongoing_requests); workflow: its inputs' seed
+SERVE_DAG_REQUESTS = 8
+SERVE_DAG_INFLIGHT = 4
+WORKFLOW_SEED = 26
 # the single-process multi-card group (mesh_group on cuda:0, mesh_group4
 # on four cards): integer-valued fp32 elements per rank of the
 # reductions (64 MiB), timed calls per op, the DAG mesh owner's fp32
@@ -1729,7 +1768,177 @@ def phase_channel(device="cuda:0", frames=CHANNEL_FRAMES):
             / frames,
             "reader_start_s": reader_up_s, "digests_equal": True,
             "writer_stats": fwd.stats, "reader_stats": done["stats"],
-            "segments_destroyed": names}
+            "segments_destroyed": names, "native_plane": native_plane()}
+
+
+def channel_bytes_reader(conn, runs):
+    """The reader process of the channel phase's native-plane frames:
+    attach the channel of each run (``(name, buffer_size, frames)``) and
+    answer with each handle's plane, then per run read its frames with
+    ``read_bytes``, answer with the seconds the reads took once the last
+    arrived, then with the frames' sha256 digests."""
+    import hashlib
+
+    from ray_tpu_torch.experimental.channel import Channel
+
+    chans = [Channel(name, buffer_size=size,
+                     _create=False).set_reader_slot(0)
+             for name, size, _ in runs]
+    try:
+        conn.send([ch._nh is not None for ch in chans])
+        for ch, (_, _, frames) in zip(chans, runs):
+            got, read_s = [], 0.0
+            for _ in range(frames):
+                t0 = time.perf_counter()
+                got.append(ch.read_bytes(timeout=120))
+                read_s += time.perf_counter() - t0
+            conn.send(read_s)
+            conn.send([hashlib.sha256(b).hexdigest() for b in got])
+    finally:
+        for ch in chans:
+            ch.detach()
+        conn.close()
+
+
+def pingpong_s(native, n=CHANNEL_PINGPONG, nbytes=CHANNEL_PINGPONG_BYTES):
+    """Seconds for ``n`` messages of ``nbytes`` from a writer thread to
+    this thread through one channel on the native plane (``native``) or
+    the Python plane; each write waits until the previous message was
+    read."""
+    import threading
+
+    from ray_tpu_torch.experimental.channel import Channel
+
+    ch = Channel(buffer_size=1 << 12, native=native)
+    rd = Channel(ch.name, buffer_size=1 << 12,
+                 _create=False).set_reader_slot(0)
+    try:
+        planes = (ch._nh is not None, rd._nh is not None)
+        if planes != (native, native):
+            raise AssertionError(f"channel: ping-pong ends on native planes "
+                                 f"{planes}, asked for {native}")
+        payload, errors = b"x" * nbytes, []
+
+        def writer():
+            try:
+                for _ in range(n):
+                    ch.write_bytes(payload, timeout=30)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        th = threading.Thread(target=writer, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        for _ in range(n):
+            if rd.read_bytes(timeout=30) != payload:
+                raise AssertionError("channel: a ping-pong message changed")
+        th.join(30)
+        dt = time.perf_counter() - t0
+        if errors or th.is_alive():
+            raise AssertionError(f"channel: the ping-pong writer failed: "
+                                 f"{errors}")
+        return dt
+    finally:
+        rd.detach()
+        ch.destroy()
+
+
+def native_plane(frames=CHANNEL_FRAMES):
+    """The native data plane of the ``channel`` phase: the library built
+    from ``ray_tpu_torch/_native/channel.cc`` with ``g++`` (the phase fails
+    without it), then on each plane of ``CHANNEL_PLANES`` in turn the
+    ping-pong (``pingpong_s``) and ``frames`` 16 MiB frames written with
+    ``write_bytes`` to a reader process forked by the worker zygote
+    (``channel_bytes_reader``), ms per frame from the first write to the
+    reader's answer after its last read.  Fails unless both ends of every
+    native channel hold a native handle and every frame's digest
+    matches."""
+    import hashlib
+
+    import numpy as np
+
+    from ray_tpu_torch._native import build
+    from ray_tpu_torch._private import worker_zygote
+    from ray_tpu_torch.experimental.channel import Channel
+    from ray_tpu_torch.experimental.channel import shared_memory_channel
+
+    prebuilt = set(os.listdir(build._BUILD_DIR)) \
+        if os.path.isdir(build._BUILD_DIR) else set()
+    t0 = time.perf_counter()
+    lib = shared_memory_channel._native_lib()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        raise AssertionError(f"channel: the native data plane did not "
+                             f"build: {build.build_error('channel')}")
+    path = build.lib_path("channel")
+    planes = ["native" if n else "python" for n in CHANNEL_PLANES]
+    pingpong = {"python": [], "native": []}
+    for native, plane in zip(CHANNEL_PLANES, planes):
+        pingpong[plane].append(pingpong_s(native))
+    nbytes = math.prod(ACTIVATION) * 2
+    rng = np.random.default_rng(15)
+    bufs = [rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+            for _ in range(3)]
+    want = [hashlib.sha256(bufs[k % 3]).hexdigest() for k in range(frames)]
+    chans = [Channel(buffer_size=nbytes, native=n) for n in CHANNEL_PLANES]
+    ctx = worker_zygote.get_context()
+    mine, theirs = ctx.Pipe()
+    proc = ctx.Process(target=channel_bytes_reader, daemon=True, args=(
+        theirs, [(c.name, c.buffer_size, frames) for c in chans]))
+    ms = {"python": [], "native": []}
+    read_ms = {"python": [], "native": []}
+
+    def answer(timeout):
+        if not mine.poll(timeout):
+            raise AssertionError(f"channel: the bytes reader did not answer "
+                                 f"in {timeout} s (exit code "
+                                 f"{proc.exitcode})")
+        return mine.recv()
+
+    try:
+        proc.start()
+        theirs.close()
+        handles = {"writer": [c._nh is not None for c in chans],
+                   "reader": answer(180)}
+        if handles != {"writer": list(CHANNEL_PLANES),
+                       "reader": list(CHANNEL_PLANES)}:
+            raise AssertionError(f"channel: native handles {handles}, "
+                                 f"planes {planes}")
+        for ch, plane in zip(chans, planes):
+            t0 = time.perf_counter()
+            for k in range(frames):
+                ch.write_bytes(bufs[k % 3], timeout=120)
+            read_s = answer(120)
+            ms[plane].append(1e3 * (time.perf_counter() - t0) / frames)
+            read_ms[plane].append(1e3 * read_s / frames)
+            if answer(120) != want:
+                raise AssertionError(f"channel: {plane} frames' digests "
+                                     f"differ")
+        proc.join(60)
+        exitcode = proc.exitcode
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+        mine.close()
+        for c in chans:
+            c.destroy()
+    if exitcode != 0:
+        raise AssertionError(f"channel: the bytes reader exited with code "
+                             f"{exitcode}")
+    return {"library": os.path.relpath(
+                path, os.path.dirname(os.path.abspath(__file__))),
+            "built_by_this_run": os.path.basename(path) not in prebuilt,
+            "build_s": build_s, "planes_in_order": planes,
+            "pingpong_messages": CHANNEL_PINGPONG,
+            "pingpong_bytes": CHANNEL_PINGPONG_BYTES,
+            "pingpong_s": pingpong,
+            "pingpong_us_per_message": {
+                p: [1e6 * t / CHANNEL_PINGPONG for t in ts]
+                for p, ts in pingpong.items()},
+            "frame_bytes": nbytes, "frames": frames,
+            "ms_per_frame": ms, "reader_ms_per_frame": read_ms,
+            "native_handles": handles, "digests_equal": True}
 
 
 def frame_copies_ms(x, out):
@@ -1748,7 +1957,7 @@ def frame_copies_ms(x, out):
     nbytes = x.numel() * x.element_size()
     host = x.cpu()
     raw = host.reshape(-1).view(torch.uint8).numpy()
-    seg = Channel(buffer_size=nbytes)
+    seg = Channel(buffer_size=nbytes, native=False)
     try:
         shm = np.frombuffer(seg._payload(nbytes), np.uint8)
         row = {"d2h_ms": best(lambda: x.cpu()),
@@ -3036,6 +3245,43 @@ def stage_memory(stage):
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def stage_ledger_open(stage):
+    """``_remote_call`` body: clear this process's edge-latency table and
+    open one step of a step ledger (unpublished) for the exec loop's
+    channel reads to book their waits to, until ``stage_ledger_close``."""
+    from ray_tpu_torch.train.session import StepLedger
+    from ray_tpu_torch.util.health import reset_edge_latency
+
+    reset_edge_latency()
+    stage.ledger = StepLedger(group_name="stages", publish=False)
+    stage.ledger_step = stage.ledger.step()
+    stage.ledger_step.__enter__()
+    return True
+
+
+def stage_ledger_close(stage):
+    """``_remote_call`` body: close the step ``stage_ledger_open`` opened;
+    its ``channel_wait`` seconds and wall, and the edge-latency table."""
+    from ray_tpu_torch.util.health import edge_latency_snapshot
+
+    stage.ledger_step.__exit__(None, None, None)
+    last = stage.ledger.last_breakdown()
+    return {"channel_wait_s": last["buckets"].get("channel_wait", 0.0),
+            "step_wall_s": last["wall_s"], "edges": edge_latency_snapshot()}
+
+
+def edge_counts_off(ledgers, want):
+    """By index, the ledgers with an edge whose read count is not
+    ``want``, with those edges; a ledger with no edge at all is off."""
+    off = {}
+    for i, led in enumerate(ledgers):
+        bad = {e: st["count"] for e, st in led["edges"].items()
+               if st["count"] != want}
+        if bad or not led["edges"]:
+            off[i] = bad or {"<no edge>": 0}
+    return off
+
+
 def stage_grad_digests(stage):
     """``_remote_call`` body: ``tensor_digest`` of every grad leaf."""
     return {p: tensor_digest(t.grad) for p, t in tree_items(stage.params)}
@@ -3139,6 +3385,8 @@ def phase_dag_forward(cfg, params, fwd, device="cuda", seq=SEQ,
     from ray_tpu_torch import actor
     from ray_tpu_torch.dag import InputNode
     from ray_tpu_torch.models.llama import llama_apply
+    from ray_tpu_torch.util.health import (edge_latency_snapshot,
+                                           reset_edge_latency)
 
     t_phase = time.perf_counter()
     L = cfg.num_layers
@@ -3158,6 +3406,9 @@ def phase_dag_forward(cfg, params, fwd, device="cuda", seq=SEQ,
             cdag.execute(tokens[0]).get(timeout=600)  # warm-up
             actor.get([s._remote_call.remote(stage_zero_launches)
                        for s in stages], timeout=60)
+            actor.get([s._remote_call.remote(stage_ledger_open)
+                       for s in stages], timeout=60)
+            reset_edge_latency()
             before = cdag.stats()
             t0 = time.perf_counter()
             pending, outs = collections.deque(), []
@@ -3169,6 +3420,9 @@ def phase_dag_forward(cfg, params, fwd, device="cuda", seq=SEQ,
                 outs.append(pending.popleft().get(timeout=300))
             per_exec_ms = 1e3 * (time.perf_counter() - t0) / execs
             after = cdag.stats()
+            driver_edges = edge_latency_snapshot()
+            ledgers = actor.get([s._remote_call.remote(stage_ledger_close)
+                                 for s in stages], timeout=60)
             launches = actor.get([s._remote_call.remote(stage_launches)
                                   for s in stages], timeout=60)
             t0 = time.perf_counter()
@@ -3209,6 +3463,9 @@ def phase_dag_forward(cfg, params, fwd, device="cuda", seq=SEQ,
             "per_exec_ms": per_exec_ms, "latency_ms_one_in_flight":
             latency_ms, "one_process_forward_ms": fwd["forward_ms"],
             "channel_wait_s_by_edge": dag_channel_waits(before, after),
+            "stage_ledger": ledgers, "driver_edges": driver_edges,
+            "edge_counts_off": edge_counts_off(
+                ledgers + [{"edges": driver_edges}], execs),
             "k1_k2_k3_k4_launches_by_stage": launches,
             "k1_per_stage_per_exec": [c[0] / execs for c in launches],
             "bit_equal": exact, "last_logits_max_abs_err": max_err,
@@ -3221,7 +3478,14 @@ def check_dag_forward(out):
     """``dag_forward``'s checks, after its line is printed: outputs
     within K1's bf16 tolerance of one process (bit-equal expected), every
     edge on the device tier with no degraded frame, K1 once per layer of
-    each stage per execution and K4 never."""
+    each stage per execution and K4 never, and every edge's latency
+    counted once per execution in the stage that read it (and in this
+    process for the output) with its wait in the stage's ledger."""
+    if out["edge_counts_off"] or not all(
+            led["channel_wait_s"] > 0 for led in out["stage_ledger"]):
+        raise AssertionError(f"dag_forward: edge reads off one per "
+                             f"execution: {out['edge_counts_off']}; ledgers "
+                             f"{out['stage_ledger']}")
     if not out["within_k1_tol"]:
         raise AssertionError(f"dag_forward: last logits off the one-process "
                              f"forward by {out['last_logits_max_abs_err']}")
@@ -3235,6 +3499,321 @@ def check_dag_forward(out):
         raise AssertionError(f"dag_forward: K1 per stage per execution "
                              f"{out['k1_per_stage_per_exec']}, expected "
                              f"{out['layers_by_stage']}; K1-K4 {launches}")
+
+
+class StageDagServer:
+    """The ``serve_dag`` deployment: its constructor starts two
+    ``ForwardStage`` actors on ``device`` (layers ``[0, L/2)`` and
+    ``[L/2, L)`` of ``cfg``, each drawn from seed 0, as ``dag_forward``'s),
+    compiles ``stage1.forward(stage0.forward(inp))``, runs one warm-up
+    execution on ``warm_tokens`` and zeroes the stages' launch counts.  A
+    request's body is ``{"tokens": [ids]}``, its answer the last
+    position's logits and every position's argmax as lists; concurrent
+    requests, each on a wire thread of the replica, share the DAG."""
+
+    def __init__(self, cfg, device, warm_tokens):
+        import threading
+
+        import torch
+
+        from ray_tpu_torch import actor
+        from ray_tpu_torch.dag import InputNode
+
+        t0 = time.perf_counter()
+        L = cfg.num_layers
+        self.layers = [L // 2, L - L // 2]
+        self.stages, self.infos, self.stage_startup_s = start_stages(
+            ForwardStage, [((cfg, 0, L // 2), {"seed": 0}),
+                           ((cfg, L // 2, L), {"seed": 0})], device)
+        with InputNode() as inp:
+            dag = self.stages[1].forward.bind(self.stages[0].forward.bind(inp))
+        self.dag = dag.experimental_compile(
+            buffer_size_bytes=DAG_BUFFER_BYTES, submit_timeout=300)
+        self.dag.execute(torch.tensor([warm_tokens])).get(timeout=600)
+        actor.get([s._remote_call.remote(stage_zero_launches)
+                   for s in self.stages], timeout=60)
+        self.lock = threading.Lock()
+        self.in_flight = self.peak = 0
+        self.exec_ms = []
+        self.build_s = time.perf_counter() - t0
+
+    def __call__(self, body):
+        import torch
+
+        tokens = torch.tensor([body["tokens"]], dtype=torch.long)
+        with self.lock:
+            self.in_flight += 1
+            self.peak = max(self.peak, self.in_flight)
+        try:
+            t0 = time.perf_counter()
+            out = self.dag.execute(tokens).get(timeout=300)
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            with self.lock:
+                self.in_flight -= 1
+        with self.lock:
+            self.exec_ms.append(ms)
+        return {"last_logits": out["last_logits"][0].tolist(),
+                "tokens": out["tokens"][0].tolist()}
+
+    def report(self, _body=None):
+        """The replica's records: its peak of requests in flight, each
+        execution's ms (execute to get), the stages' K1-K4 launches since
+        the warm-up, the edges' tiers and degraded frames, and the build
+        and start-up seconds."""
+        from ray_tpu_torch import actor
+
+        stats = self.dag.stats()
+        return {"peak_in_flight": self.peak, "exec_ms": list(self.exec_ms),
+                "launches": actor.get([s._remote_call.remote(stage_launches)
+                                       for s in self.stages], timeout=60),
+                "layers_by_stage": self.layers,
+                "edge_tiers": stats["channel_transport"],
+                "degraded_frames": dag_degraded(stats),
+                "build_s": self.build_s,
+                "stage_startup_s": self.stage_startup_s,
+                "stage_build_s": [i["build_s"] for i in self.infos],
+                "replica_pid": os.getpid(),
+                "stage_pids": [i["pid"] for i in self.infos]}
+
+    def __del__(self):
+        """The replica's shutdown hook: the DAG torn down, the stages
+        killed (a killed replica's stages end with it anyway: their pipe
+        to it closes)."""
+        from ray_tpu_torch import actor
+
+        if getattr(self, "dag", None) is not None:
+            self.dag.teardown()
+            self.dag = None
+        for s in getattr(self, "stages", ()):
+            actor.kill(s)
+
+
+def phase_serve_dag(cfg, params, dag_fwd, device="cuda", seq=SEQ,
+                    n=SERVE_DAG_REQUESTS, inflight=SERVE_DAG_INFLIGHT):
+    """A compiled DAG of two Llama stage processes behind the serving
+    front: ``serve.start`` (the HTTP proxy), ``serve.run`` of
+    ``StageDagServer`` (``max_ongoing_requests=inflight``), then ``n``
+    requests through the proxy, each with its own ``seq`` tokens, at
+    most ``inflight`` at once.  Every answer is held to this process's
+    ``llama_apply`` of ``params`` on the same tokens, as ``dag_forward``
+    holds its outputs: bit-equal expected, a miss within K1's bf16
+    tolerance (atol = rtol = 2e-2) and reported.  Returns the replica's
+    start, each request's end to end ms, the replica's records and the
+    ms per execution beside ``dag_forward``'s."""
+    import concurrent.futures as cf
+
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.net import free_port
+    from ray_tpu_torch.models.llama import llama_apply
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(7)
+    tokens = [torch.randint(0, cfg.vocab_size, (seq,), generator=gen)
+              for _ in range(n + 1)]
+    app = serve.deployment(name="StageDag", max_ongoing_requests=inflight)(
+        StageDagServer).bind(cfg, device, tokens[0].tolist())
+    proxy = serve.start(http_options={"host": "127.0.0.1",
+                                      "port": free_port()})
+    try:
+        t0 = time.perf_counter()
+        handle = serve.run(app, name="serve_dag", route_prefix="/dag")
+        start_s = time.perf_counter() - t0
+
+        def one(t):
+            t0 = time.perf_counter()
+            answer = _post(proxy.port, "/dag", {"tokens": t.tolist()})
+            return answer, 1e3 * (time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(inflight) as pool:
+            results = list(pool.map(one, tokens[1:]))
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        report = handle.report.remote(None).result(timeout=120)
+    finally:
+        serve.shutdown()
+    with torch.no_grad():
+        max_err, exact, within, agree = 0.0, True, True, []
+        for t, (answer, _) in zip(tokens[1:], results):
+            logits = llama_apply(params, t[None].to(device), cfg)
+            want_last = logits[0, -1].float().cpu()
+            want_tok = logits[0].argmax(-1).cpu()
+            got_last = torch.tensor(answer["last_logits"],
+                                    dtype=torch.float32)
+            got_tok = torch.tensor(answer["tokens"])
+            max_err = max(max_err, float((got_last - want_last).abs().max()))
+            exact = exact and torch.equal(got_last, want_last) \
+                and torch.equal(got_tok, want_tok)
+            agree.append(float((got_tok == want_tok).float().mean()))
+            within = within and torch.allclose(got_last, want_last,
+                                               atol=2e-2, rtol=2e-2)
+    launches = report.pop("launches")
+    return {"requests": n, "max_in_flight": inflight,
+            "replica_start_s": start_s,
+            "request_e2e_ms": [ms for _, ms in results],
+            "ms_per_exec": wall_ms / n,
+            "dag_forward_per_exec_ms": dag_fwd["per_exec_ms"],
+            "dag_forward_inflight": dag_fwd["inflight"],
+            "replica": report, "k1_k2_k3_k4_launches_by_stage": launches,
+            "k1_per_stage_per_exec": [c[0] / n for c in launches],
+            "bit_equal": exact, "last_logits_max_abs_err": max_err,
+            "within_k1_tol": within, "token_agreement": agree,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def check_serve_dag(out):
+    """``serve_dag``'s checks, after its line is printed: answers within
+    K1's bf16 tolerance of one process, two or more requests in the
+    replica at once, K1 once per layer of each stage per execution and
+    K4 never, no degraded frame."""
+    rep = out["replica"]
+    if not out["within_k1_tol"]:
+        raise AssertionError(f"serve_dag: last logits off the one-process "
+                             f"forward by {out['last_logits_max_abs_err']}")
+    if rep["peak_in_flight"] < 2:
+        raise AssertionError(f"serve_dag: requests never overlapped in the "
+                             f"replica (peak {rep['peak_in_flight']})")
+    launches = out["k1_k2_k3_k4_launches_by_stage"]
+    if out["k1_per_stage_per_exec"] != rep["layers_by_stage"] \
+            or any(c[3] for c in launches) or rep["degraded_frames"]:
+        raise AssertionError(f"serve_dag: K1 per stage per execution "
+                             f"{out['k1_per_stage_per_exec']}, expected "
+                             f"{rep['layers_by_stage']}; K1-K4 {launches}; "
+                             f"{rep['degraded_frames']} degraded frames")
+
+
+def wf_inputs(seed):
+    """The ``workflow`` phase's first step: q, k and v at the ``startup``
+    shape, bf16 on the host, from ``seed``."""
+    import torch
+
+    b, sq, h, d = STARTUP_K1
+    gen = torch.Generator().manual_seed(seed)
+    return {n: torch.randn(b, sq, h, d, generator=gen).to(torch.bfloat16)
+            for n in "qkv"}
+
+
+def wf_attend(qkv, device):
+    """Its second step: K1 (causal) on ``device``, the output and lse back
+    on the host, and the output's error against the plain attention
+    (K1's bf16 tolerances: 2e-2 on O, 1e-3 on lse)."""
+    from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+    q, k, v = (qkv[n].to(device) for n in "qkv")
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    pout, plse = fa.flash_attention_plain(q, k, v, causal=True)
+    err = (out.float() - pout.float()).abs()
+    lse_err = float((lse - plse).abs().max())
+    return {"out": out.cpu(), "lse": lse.cpu(),
+            "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+            "within_tol": bool((err <= 2e-2 + 2e-2 * pout.float().abs())
+                               .all()) and lse_err <= 1e-3}
+
+
+def wf_finish(attn, fail_flag):
+    """Its last step: raises while the file ``fail_flag`` exists (the
+    first run), else the attention with its output's digest."""
+    if os.path.exists(fail_flag):
+        raise RuntimeError("workflow: the last step fails while its flag "
+                           "file exists")
+    return {**attn, "digest": tensor_digest(attn["out"])}
+
+
+def phase_workflow(device="cuda"):
+    """A durable workflow over the port's DAG (``ray_tpu_torch.workflow``):
+    ``wf_inputs`` -> ``wf_attend`` (K1 on ``device``) -> ``wf_finish``,
+    whose first run fails at the last step.  ``resume`` must restore the
+    first two steps from their checkpoints and run the last; the output
+    must equal an uninterrupted run's (a new workflow id) bit for bit.
+    Returns the statuses, step counts, K1-K4 launches of the run and its
+    resume and of the uninterrupted run, and their seconds."""
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import actor, workflow
+    from ray_tpu_torch.dag import InputNode
+
+    steps = [actor.remote(f) for f in (wf_inputs, wf_attend, wf_finish)]
+    with tempfile.TemporaryDirectory(prefix="rtpu_wf_") as root:
+        flag = os.path.join(root, "fail")
+
+        def dag():
+            with InputNode() as inp:
+                return steps[2].bind(steps[1].bind(steps[0].bind(inp),
+                                                   device), flag)
+
+        open(flag, "w").close()
+        _zero_launches()
+        t0 = time.perf_counter()
+        try:
+            workflow.run(dag(), WORKFLOW_SEED, workflow_id="k1", storage=root)
+            failure = None
+        except Exception as e:  # noqa: BLE001 — the planned failure
+            failure = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+        first_s = time.perf_counter() - t0
+        status = workflow.get_status("k1", storage=root)
+        os.unlink(flag)
+        t0 = time.perf_counter()
+        out = workflow.resume("k1", dag(), storage=root)
+        resume_s = time.perf_counter() - t0
+        meta = workflow.get_metadata("k1", storage=root)
+        launches = list(_all_launches())
+        step_files = sorted(os.listdir(os.path.join(root, "k1", "steps")))
+        t0 = time.perf_counter()
+        clean = workflow.run(dag(), WORKFLOW_SEED, workflow_id="k1-clean",
+                             storage=root)
+        clean_s = time.perf_counter() - t0
+        clean_launches = [a - b for a, b in zip(_all_launches(), launches)]
+    bit_equal = torch.equal(out["out"].view(torch.int16),
+                            clean["out"].view(torch.int16)) \
+        and torch.equal(out["lse"].view(torch.int32),
+                        clean["lse"].view(torch.int32))
+    return {"steps": 3, "k1_shape_b_s_h_d": list(STARTUP_K1),
+            "dtype": "bfloat16", "seed": WORKFLOW_SEED,
+            "first_run_error": failure,
+            "status_after_failure": status and status.value,
+            "status": meta["status"],
+            "steps_restored": meta["steps_restored"],
+            "steps_executed": meta["steps_executed"],
+            "step_files": len(step_files),
+            "k1_k2_k3_k4_launches_run_and_resume": launches,
+            "k1_k2_k3_k4_launches_uninterrupted": clean_launches,
+            "output_bit_equal_uninterrupted": bit_equal,
+            "digest": out["digest"], "k1_max_abs_err": out["max_abs_err"],
+            "k1_lse_max_abs_err": out["lse_max_abs_err"],
+            "k1_within_tol": out["within_tol"],
+            "first_run_s": first_s, "resume_s": resume_s,
+            "uninterrupted_s": clean_s}
+
+
+def check_workflow(out):
+    """``workflow``'s checks, after its line is printed: the first run
+    failed at its last step and left the workflow resumable, the resume
+    restored two steps and ran one, K1 launched once for the run and its
+    resume and once for the uninterrupted run (K2-K4 never) within its
+    tolerance, and the outputs are bit-equal."""
+    if "flag file exists" not in (out["first_run_error"] or "") \
+            or out["status_after_failure"] != "RESUMABLE" \
+            or out["status"] != "SUCCESSFUL" \
+            or (out["steps_restored"], out["steps_executed"]) != (2, 1):
+        raise AssertionError(f"workflow: run {out['first_run_error']!r} "
+                             f"({out['status_after_failure']}), resume "
+                             f"{out['status']} with "
+                             f"{out['steps_restored']} restored and "
+                             f"{out['steps_executed']} executed")
+    if out["k1_k2_k3_k4_launches_run_and_resume"] != [1, 0, 0, 0] \
+            or out["k1_k2_k3_k4_launches_uninterrupted"] != [1, 0, 0, 0] \
+            or not out["k1_within_tol"] \
+            or not out["output_bit_equal_uninterrupted"]:
+        raise AssertionError(
+            f"workflow: K1-K4 {out['k1_k2_k3_k4_launches_run_and_resume']} "
+            f"(run and resume), "
+            f"{out['k1_k2_k3_k4_launches_uninterrupted']} (uninterrupted); "
+            f"K1 within tolerance {out['k1_within_tol']}; bit-equal "
+            f"{out['output_bit_equal_uninterrupted']}")
 
 
 def pipeline_microbatches(cfg, n, seq, device, seed=6):
@@ -7806,15 +8385,19 @@ def dag4_or_why():
     return phase_dag4()
 
 
-def dag_launches(dag_fwd, dag_pipe, dag4, i):
+def dag_launches(dag_fwd, dag_pipe, dag4, serve_dag, wf, i):
     """Kernel ``i``'s launches (K1-K4) on the DAG paths, counted in their
-    stage processes: ``dag_forward``'s timed executions and
-    ``dag_pipeline``'s timed run by stage, and per step by rank on
-    ``dag4`` when it ran."""
+    stage processes: ``dag_forward``'s timed executions,
+    ``dag_pipeline``'s timed run and ``serve_dag``'s requests by stage,
+    per step by rank on ``dag4`` when it ran, and in this process on
+    ``workflow``'s run and resume."""
     out = {"dag_forward_by_stage": [
         c[i] for c in dag_fwd["k1_k2_k3_k4_launches_by_stage"]],
         "dag_pipeline_by_stage": [
-        c[i] for c in dag_pipe["k1_k2_k3_k4_launches_by_stage"]]}
+        c[i] for c in dag_pipe["k1_k2_k3_k4_launches_by_stage"]],
+        "serve_dag_by_stage": [
+        c[i] for c in serve_dag["k1_k2_k3_k4_launches_by_stage"]],
+        "workflow": wf["k1_k2_k3_k4_launches_run_and_resume"][i]}
     if dag4.get("ran"):
         out["dag4_per_step_by_rank"] = [
             c[i] for c in dag4["k1_k2_k3_k4_per_step_by_rank"]]
@@ -7833,13 +8416,20 @@ def main(argv) -> int:
     from ray_tpu_torch.models.moe import MoEConfig, make_moe_trainer
 
     if set(argv) - FOUR_CARD_PHASES - DATA_PHASES - SERVING_PHASES \
-            - RL_PHASES - TIERED_PHASES - DAG_PHASES - {"startup",
-                                                        "mesh_group"}:
+            - RL_PHASES - TIERED_PHASES - DAG_PHASES - {
+                "startup", "mesh_group", "channel", "serve_dag",
+                "workflow"}:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     smi = phase_env()
     if argv:
         if "startup" in argv:
             emit({"phase": "startup", **phase_startup()})
+        if "channel" in argv:
+            emit({"phase": "channel", **phase_channel()})
+        if "workflow" in argv:
+            wf = phase_workflow()
+            emit({"phase": "workflow", **wf})
+            check_workflow(wf)
         if "mesh_group" in argv:
             emit({"phase": "mesh_group", **phase_mesh_group()})
         if "mesh_group4" in argv:
@@ -7868,7 +8458,7 @@ def main(argv) -> int:
             emit({"phase": "health4", **phase_health4()})
         if "dag4" in argv:
             emit({"phase": "dag4", "model": "llama2_7b", **dag4_or_why()})
-        if "dag_forward" in argv:
+        if "dag_forward" in argv or "serve_dag" in argv:
             cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
                                       param_dtype=torch.bfloat16)
             params = llama_init(cfg, seed=0, device="cuda")
@@ -7880,6 +8470,12 @@ def main(argv) -> int:
                   "layers": cfg.num_layers, "depth_cut": False, "batch": 1,
                   "seq": SEQ, **dag_fwd})
             check_dag_forward(dag_fwd)
+            if "serve_dag" in argv:
+                serve_dag = phase_serve_dag(cfg, params, dag_fwd)
+                emit({"phase": "serve_dag", "model": "llama2_7b",
+                      "layers": cfg.num_layers, "depth_cut": False,
+                      "batch": 1, "seq": SEQ, **serve_dag})
+                check_serve_dag(serve_dag)
             del params
             gc.collect()
             torch.cuda.empty_cache()
@@ -7945,6 +8541,9 @@ def main(argv) -> int:
     startup = phase_startup()
     emit({"phase": "startup", **startup})
     emit({"phase": "channel", **phase_channel()})
+    wf = phase_workflow()
+    emit({"phase": "workflow", **wf})
+    check_workflow(wf)
     ring = phase_ring()
     emit({"phase": "ring", **ring})
     mesh_group = phase_mesh_group()
@@ -7973,6 +8572,11 @@ def main(argv) -> int:
           "layers": cfg.num_layers, "depth_cut": False, "batch": 1,
           "seq": SEQ, **dag_fwd})
     check_dag_forward(dag_fwd)
+    serve_dag = phase_serve_dag(cfg, params, dag_fwd)
+    emit({"phase": "serve_dag", "model": "llama2_7b",
+          "layers": cfg.num_layers, "depth_cut": False, "batch": 1,
+          "seq": SEQ, **serve_dag})
+    check_serve_dag(serve_dag)
     torch.cuda.reset_peak_memory_stats()
     serve = phase_serve(cfg, params)
     single = {k: serve.pop(k) for k in ("first_token_logits",
@@ -8220,7 +8824,8 @@ def main(argv) -> int:
          "launches": train["launches"]["K1"],
          "launches_by_path": {"startup": startup["k1_launches"],
                               "forward": fwd["k1_launches"],
-                              **dag_launches(dag_fwd, dag_pipe, dag4, 0),
+                              **dag_launches(dag_fwd, dag_pipe, dag4,
+                                             serve_dag, wf, 0),
                               "serve": serve["k1_launches"],
                               "disagg": disagg["k1_launches"],
                               "moe_forward": moe_fwd["k1_launches"],
@@ -8238,7 +8843,8 @@ def main(argv) -> int:
          "source": source + "flash_bwd.cu", "replaces": replaces + "195",
          "design": bwd["k2_design"], "launches": train["launches"]["K2"],
          "launches_by_path": {**by_path("K2"), **serving(1),
-                              **dag_launches(dag_fwd, dag_pipe, dag4, 1),
+                              **dag_launches(dag_fwd, dag_pipe, dag4,
+                                             serve_dag, wf, 1),
                               **rl_launches_by_path(rl, 1),
                               **tiered_launches_by_path(tiered, 1)},
          "max_abs_err": bwd["dq_max_abs_err"],
@@ -8253,7 +8859,8 @@ def main(argv) -> int:
          "source": source + "flash_bwd.cu", "replaces": replaces + "232",
          "launches": train["launches"]["K3"],
          "launches_by_path": {**by_path("K3"), **serving(2),
-                              **dag_launches(dag_fwd, dag_pipe, dag4, 2),
+                              **dag_launches(dag_fwd, dag_pipe, dag4,
+                                             serve_dag, wf, 2),
                               **rl_launches_by_path(rl, 2),
                               **tiered_launches_by_path(tiered, 2)},
          "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
@@ -8273,7 +8880,8 @@ def main(argv) -> int:
                               **({"mesh_group4": mesh_group4["k4_launches"]}
                                  if "k4_launches" in mesh_group4 else {}),
                               **serving(3),
-                              **dag_launches(dag_fwd, dag_pipe, dag4, 3),
+                              **dag_launches(dag_fwd, dag_pipe, dag4,
+                                             serve_dag, wf, 3),
                               **health_pings, **rl_launches_by_path(rl, 3),
                               **tiered_launches_by_path(tiered, 3)},
          "max_abs_err": k4["max_abs_err"],

@@ -623,15 +623,18 @@ class CompiledDAG:
             terminal_counts[id(t)] = terminal_counts.get(id(t), 0) + 1
         terminal_ids = set(terminal_counts)
 
-        # The buffer gets frame-header slack so the user-visible payload
-        # capacity stays buffer_size_bytes.
+        # Tiered channels run the Python data plane (native=False): device
+        # frames serialize straight into the segment and reads defer their
+        # ack.  The buffer gets frame-header slack so the user-visible
+        # payload capacity stays buffer_size_bytes.
         chan_capacity = self.buffer_size + 256
 
         # input channel: one writer (driver), one reader slot per actor
         # that consumes the input
         input_actors = [aid for aid, used in consumes_input.items() if used]
         input_ch = Channel(buffer_size=chan_capacity,
-                           num_readers=max(1, len(input_actors)))
+                           num_readers=max(1, len(input_actors)),
+                           native=False)
         input_tier = transport_mod.negotiate_channel(
             driver_info, [infos.get(aid) for aid in input_actors])
         for aid in input_actors:
@@ -658,7 +661,8 @@ class CompiledDAG:
             if n_readers == 0:
                 out_channel[id(n)] = None
                 continue
-            ch = Channel(buffer_size=chan_capacity, num_readers=n_readers)
+            ch = Channel(buffer_size=chan_capacity, num_readers=n_readers,
+                         native=False)
             self._all_channels.append(ch)
             out_channel[id(n)] = ch
             tier = transport_mod.negotiate_channel(

@@ -463,9 +463,10 @@ class _SplitCoordinator:
         self.channels: List[Channel] = []
         try:
             for _ in range(n):
+                # the Python plane: bundles serialize into the segment
                 self.channels.append(Channel(
                     f"{SEGMENT_PREFIX}{uuid.uuid4().hex[:16]}",
-                    buffer_size=size))
+                    buffer_size=size, native=False))
         except BaseException:
             for ch in self.channels:
                 ch.destroy()

@@ -19,15 +19,27 @@ The high bit of the ``n_readers`` word marks the channel closed; the
 writer never stores to that word, so a close is sticky even mid-write.
 Waits are a short hot spin, then sleeps that back off from 0.1 ms to 1 ms.
 
-:class:`CompositeChannel` reads several channels as one tuple.
+**The native data plane.**  ``ray_tpu_torch/_native/channel.cc`` (built
+with ``g++`` on first use, ``_native/build.py``) drives the same segment
+with real atomics (acquire/release) and futex waits.  The creator fixes a
+channel's plane for every peer: with the library loaded and ``native`` not
+False it sets ``_NATIVE_BIT`` in the flags word, and every handle that can
+load the library then reads and writes bytes through it
+(``write_bytes``/``read_bytes``; each native call waits at most 0.2 s, so
+signals still reach Python between calls).  Without a toolchain a channel
+is on the Python plane and ``_native.build.build_error()`` says why.  A
+peer that cannot load the library joins a native segment on the Python
+plane only under x86's total store order; elsewhere it refuses.  The
+zero-copy path (``acquire_write_buffer``, ``read_acquire``) needs the
+Python plane and raises on a native channel: the compiled DAG and the
+edge transports create theirs with ``native=False``.
 
-Not ported: the reference's native data plane (``ray_tpu/_native/``
-channel.cc, the ``_NATIVE_BIT`` mode); a segment created in native mode
-is refused here.
+:class:`CompositeChannel` reads several channels as one tuple.
 """
 
 from __future__ import annotations
 
+import platform
 import struct
 import time
 import uuid
@@ -38,7 +50,13 @@ from ray_tpu_torch._private.shm import open_shm
 _U64 = struct.Struct("<Q")
 _HDR = 24  # version, payload_len, n_readers
 _CLOSED_BIT = 1 << 63  # high bit of the n_readers word: channel torn down
-_NATIVE_BIT = 1 << 62  # the reference's native data plane owns the segment
+_NATIVE_BIT = 1 << 62  # the native data plane (channel.cc) owns the segment
+# native and Python peers share a segment safely only under total store
+# order: the Python writer publishes the payload, then the version, with
+# plain stores, which a native reader pairs with acquire loads
+_TSO = platform.machine().lower() in ("x86_64", "amd64", "i686", "i386")
+# one native call's wait, seconds: Python gets control back between calls
+_NATIVE_BUDGET_S = 0.2
 # a wait's sleeps after its hot spin: from the first to the longest
 _SLEEP_MIN_S = 0.0001
 _SLEEP_MAX_S = 0.001
@@ -69,31 +87,100 @@ def reset_copy_stats() -> None:
     COPY_STATS.update(bytes_copied=0, payloads=0, payload_bytes=0)
 
 
+_UNSET = object()
+_NATIVE: Any = _UNSET
+
+
+def _native_lib():
+    """The ctypes binding of ``_native/channel.cc``, built on first use;
+    None when it cannot be built (``_native.build.build_error``)."""
+    global _NATIVE
+    if _NATIVE is not _UNSET:
+        return _NATIVE
+    import ctypes
+
+    from ray_tpu_torch._native.build import lib_path
+
+    path = lib_path("channel")
+    try:
+        lib = None if path is None else ctypes.CDLL(path)
+    except OSError:  # a library this host cannot load: the Python plane
+        lib = None
+    if lib is None:
+        _NATIVE = None
+        return None
+    c_void_p, u64, dbl = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_double
+    for fn, res, args in (
+            ("rtpu_ch_attach", c_void_p, [ctypes.c_char_p]),
+            ("rtpu_ch_write", ctypes.c_int64,
+             [c_void_p, ctypes.c_void_p, u64, dbl]),
+            ("rtpu_ch_read_acquire", ctypes.c_int64, [c_void_p, u64, dbl]),
+            ("rtpu_ch_payload", ctypes.c_void_p, [c_void_p]),
+            ("rtpu_ch_read_release", None, [c_void_p, u64]),
+            ("rtpu_ch_close", None, [c_void_p]),
+            ("rtpu_ch_detach", None, [c_void_p])):
+        getattr(lib, fn).restype = res
+        getattr(lib, fn).argtypes = args
+    _NATIVE = lib
+    return lib
+
+
 class Channel:
-    """Handle to one shm channel; picklable (reattaches by name)."""
+    """Handle to one shm channel; picklable (reattaches by name).
+
+    ``native``: ``None`` (the default) or True puts a new channel on the
+    native data plane when its library builds, False keeps the Python
+    plane; an attaching handle follows the segment's mode."""
 
     def __init__(self, name: Optional[str] = None, *,
                  buffer_size: int = 1 << 20, num_readers: int = 1,
-                 _create: bool = True):
+                 _create: bool = True, native: Optional[bool] = None):
         self.name = name or f"rtpu_ch_{uuid.uuid4().hex[:16]}"
         self.buffer_size = buffer_size
         self.num_readers = num_readers
         self._reader_slot: Optional[int] = None
         self._pinned: Optional[int] = None  # address page-locked for CUDA
+        self._nh: Optional[int] = None  # the native plane's handle
         if _create:
+            lib = None if native is False else _native_lib()
             self._seg = open_shm(name=self.name, create=True,
                                  size=_HDR + 8 * num_readers + buffer_size)
             self._seg.buf[:_HDR + 8 * num_readers] = bytes(
                 _HDR + 8 * num_readers)
-            _U64.pack_into(self._seg.buf, 16, num_readers)
+            _U64.pack_into(self._seg.buf, 16,
+                           num_readers | (_NATIVE_BIT if lib else 0))
         else:
             self._seg = open_shm(name=self.name)
-            if _U64.unpack_from(self._seg.buf, 16)[0] & _NATIVE_BIT:
-                self._seg.close()
-                raise RuntimeError(
-                    f"channel {self.name} runs the reference's native data "
-                    f"plane, which the port does not have; create it with "
-                    f"native=False")
+        if _U64.unpack_from(self._seg.buf, 16)[0] & _NATIVE_BIT:
+            self._attach_native(_create)
+
+    def _attach_native(self, created: bool) -> None:
+        lib = _native_lib()
+        self._nh = lib.rtpu_ch_attach(self.name.encode()) if lib else None
+        if self._nh is None and not _TSO:
+            self._seg.close()
+            if created:
+                self._seg.unlink()
+            from ray_tpu_torch._native.build import build_error
+
+            raise RuntimeError(
+                f"channel {self.name} runs the native data plane, which "
+                f"this process could not load ({build_error('channel')}); "
+                f"mixed native and Python peers are unsafe on a "
+                f"weakly-ordered ({platform.machine()}) host")
+
+    @property
+    def supports_zero_copy(self) -> bool:
+        """True on the Python plane: the native write takes a whole byte
+        string and cannot serialize into the segment or defer a read's
+        ack."""
+        return self._nh is None
+
+    def _refuse_native(self, what: str) -> None:
+        if self._nh is not None:
+            raise RuntimeError(
+                f"channel {self.name} runs the native data plane; {what} "
+                f"needs Channel(..., native=False)")
 
     # -- pickling ----------------------------------------------------------
     def __reduce__(self):
@@ -148,21 +235,70 @@ class Channel:
                 f"{self.buffer_size}B (set buffer_size at compile time)")
 
     # -- byte data plane ----------------------------------------------------
-    def write_bytes(self, payload: bytes,
-                    timeout: Optional[float] = None) -> None:
-        self._check_size(len(payload))
+    def _native_call(self, call, timeout: Optional[float], what: str) -> int:
+        """Repeat ``call(budget)`` (a native wait of at most
+        ``_NATIVE_BUDGET_S``) until it returns >= 0, the channel closes
+        (-2) or ``timeout`` passes (``ChannelTimeoutError``)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            budget = _NATIVE_BUDGET_S if deadline is None else max(
+                0.0, min(_NATIVE_BUDGET_S, deadline - time.monotonic()))
+            rc = call(budget)
+            if rc >= 0:
+                return rc
+            if rc == -2:
+                raise ChannelClosedError(f"channel {self.name} closed")
+            if rc == -3:
+                raise ValueError(f"channel {self.name}: payload exceeds the "
+                                 f"segment's capacity")
+            if deadline is not None and time.monotonic() > deadline:
+                raise ChannelTimeoutError(
+                    f"channel {self.name}: timeout waiting for {what}")
+
+    def write_bytes(self, payload, timeout: Optional[float] = None) -> None:
+        """Publish ``payload`` (bytes-like) once every reader consumed the
+        previous value."""
+        n = len(payload)
+        self._check_size(n)
+        if self._nh is not None:
+            import ctypes
+
+            if isinstance(payload, bytes):
+                src = payload  # passed as its buffer's address
+            else:
+                view = memoryview(payload)
+                # a writable buffer is passed in place; a read-only view
+                # is copied once
+                src = bytes(view) if view.readonly else \
+                    (ctypes.c_char * n).from_buffer(view)
+            self._native_call(
+                lambda t: _NATIVE.rtpu_ch_write(self._nh, src, n, t),
+                timeout, "readers to consume previous value")
+            _count_copy(n)
+            return
         if self._is_closed():
             raise ChannelClosedError(f"channel {self.name} closed")
         self.wait_readers(timeout)
-        self._payload(len(payload))[:] = payload
-        _count_copy(len(payload))
-        _U64.pack_into(self._seg.buf, 8, len(payload))
+        self._payload(n)[:] = payload
+        _count_copy(n)
+        _U64.pack_into(self._seg.buf, 8, n)
         _U64.pack_into(self._seg.buf, 0, self._version() + 2)
 
     def read_bytes(self, timeout: Optional[float] = None) -> bytes:
+        """The next value's bytes, copied out of the segment."""
+        slot = self._reader_slot or 0
+        if self._nh is not None:
+            import ctypes
+
+            n = self._native_call(
+                lambda t: _NATIVE.rtpu_ch_read_acquire(self._nh, slot, t),
+                timeout, "a new value")
+            out = ctypes.string_at(_NATIVE.rtpu_ch_payload(self._nh), n)
+            _NATIVE.rtpu_ch_read_release(self._nh, slot)
+            return out
         view, v = self.read_acquire(timeout)
         out = bytes(view)
-        self._set_ack(self._reader_slot or 0, v)
+        self._set_ack(slot, v)
         return out
 
     # -- zero-copy data plane -----------------------------------------------
@@ -184,6 +320,7 @@ class Channel:
         out a writable view of the payload region.  The caller fills it
         and MUST call :meth:`commit_write` to publish."""
         self._check_size(nbytes)
+        self._refuse_native("a zero-copy write")
         if self._is_closed():
             raise ChannelClosedError(f"channel {self.name} closed")
         self.wait_readers(timeout)
@@ -196,11 +333,18 @@ class Channel:
         _U64.pack_into(self._seg.buf, 0, self._version() + 2)
 
     def write_value(self, value, timeout: Optional[float] = None) -> int:
-        """Serialize ``value`` straight into the segment; returns the
+        """Serialize ``value`` straight into the segment (on the native
+        plane: into a buffer of its own, then ``write_bytes``); returns the
         payload's bytes."""
         from ray_tpu_torch._private import serialization
 
         core, raw_bufs, total = serialization.serialize_parts(value)
+        if self._nh is not None:
+            out = bytearray(total)
+            serialization.write_parts(memoryview(out), core, raw_bufs)
+            _count_copy(total, payload=total)
+            self.write_bytes(out, timeout)
+            return total
         buf = self.acquire_write_buffer(total, timeout)
         serialization.write_parts(buf, core, raw_bufs)
         self.commit_write(total)
@@ -211,6 +355,7 @@ class Channel:
         """Wait for an unread value and return ``(payload_view, version)``
         WITHOUT acking: the writer cannot reuse the buffer until
         :meth:`read_release` runs.  Pair with read_release on every path."""
+        self._refuse_native("a zero-copy read")
         last = self._ack(self._reader_slot or 0)
         self._wait(lambda: self._version() > last, timeout, "a new value")
         v = self._version()
@@ -243,6 +388,10 @@ class Channel:
         ``device`` (``None``: the card; the CPU only when asked for)."""
         from ray_tpu_torch._private import serialization
 
+        if self._nh is not None:
+            return serialization.deserialize(
+                memoryview(self.read_bytes(timeout)), zero_copy=False,
+                device=device)
         view, v = self.read_acquire(timeout)
         try:
             return serialization.deserialize(view, zero_copy=False,
@@ -260,6 +409,9 @@ class Channel:
     def close(self) -> None:
         """Mark the channel closed: every peer's waits raise
         :class:`ChannelClosedError` from now on."""
+        if self._nh is not None:
+            _NATIVE.rtpu_ch_close(self._nh)  # wakes every futex waiter
+            return
         if self._seg.buf is None:  # this handle is detached
             return
         cur = _U64.unpack_from(self._seg.buf, 16)[0]
@@ -290,6 +442,9 @@ class Channel:
     def detach(self) -> None:
         """Unmap this handle's view of the segment.  A zero-copy view still
         alive keeps the mapping until it is collected."""
+        if self._nh is not None:
+            _NATIVE.rtpu_ch_detach(self._nh)
+            self._nh = None
         if self._pinned is not None:
             import torch
 

@@ -36,12 +36,21 @@ transport to ``TIER_HOST`` (sticky, counted in ``stats["degraded"]``);
 both encodings share one wire format (a marker word ahead of the payload),
 so a degraded writer never desyncs its readers.
 
+**Attribution.**  Every read books its wait to the ``channel_wait`` bucket
+of a running step ledger (``_private/durations.py``) and to the health
+plane's per-edge latency tracker (``util/health.note_edge_latency``,
+keyed by the edge's name), which a rank's step records ship as
+``edges``.  A borrowed read books its acquire and decode only: the
+consumer's ``fn`` is not the channel's time.
+
+**Native channels.**  The compiled DAG and :func:`make_edge_transport`
+create their channels with ``native=False``: device frames serialize
+straight into the segment and reads defer their ack, which the native
+data plane cannot do.  A transport over a native channel writes staged
+host frames through ``write_bytes`` and reads owned copies.
+
 Each actor's endpoint info comes from one ``_remote_call`` round over the
 process actors (:func:`gather_endpoint_info`, ``ray_tpu_torch.actor``).
-
-Not ported: the per-edge latency hook into the health plane and the
-``channel_wait`` tracing hook (both belong to the reference's runtime),
-and the native-data-plane branches.
 """
 
 from __future__ import annotations
@@ -57,13 +66,14 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch._private import serialization
+from ray_tpu_torch._private import durations, serialization
 from ray_tpu_torch.experimental.channel.shared_memory_channel import (
     Channel,
     ChannelClosedError,
 )
 from ray_tpu_torch.ops.cuda.remote_copy import (check_remote_copies,
                                                 remote_copy)
+from ray_tpu_torch.util.health import note_edge_latency
 
 TIER_FUSED = "A-fused"
 TIER_DEVICE = "B-device"
@@ -308,7 +318,9 @@ class EdgeTransport:
     def write(self, value: Any, timeout: Optional[float] = None) -> None:
         t0 = time.perf_counter()
         try:
-            if self.tier == TIER_DEVICE and _is_device_payload(value):
+            if not self.channel.supports_zero_copy:
+                n = self._write_frame_staged(value, timeout)
+            elif self.tier == TIER_DEVICE and _is_device_payload(value):
                 try:
                     n = self._write_frame(value, _MARK_DEVICE, timeout)
                     self.stats["device_frames"] += 1
@@ -328,17 +340,22 @@ class EdgeTransport:
         """The next value, owned: nothing in it aliases the segment."""
         t0 = time.perf_counter()
         try:
-            view, version = self.channel.read_acquire(timeout)
-            t_land = time.perf_counter()
-            try:
+            if self.channel.supports_zero_copy:
+                view, version = self.channel.read_acquire(timeout)
+                t_land = time.perf_counter()
+                try:
+                    value = self._decode(view)
+                finally:
+                    self.channel.read_release(version)
+            else:  # the native plane: an owned copy of the frame
+                view = memoryview(self.channel.read_bytes(timeout))
+                t_land = time.perf_counter()
                 value = self._decode(view)
-            finally:
-                self.channel.read_release(version)
             self.stats["recvs"] += 1
             self.stats["last_land_s"] = time.perf_counter() - t_land
             return value
         finally:
-            self.stats["read_wait_s"] += time.perf_counter() - t0
+            self._note_wait(time.perf_counter() - t0)
 
     def read_borrowed(self, fn, timeout: Optional[float] = None) -> Any:
         """Device-landing read: apply ``fn`` to the value while it still
@@ -350,6 +367,8 @@ class EdgeTransport:
         the writer reuses.  The reader's stream is synchronised before the
         release, so queued work cannot outlive the buffer, and the release
         is version-guarded: an overwrite while ``fn`` runs raises."""
+        if not self.channel.supports_zero_copy:
+            return fn(self.read(timeout))  # read books its own wait
         t0 = time.perf_counter()
         dt = None  # acquire + decode only: fn's compute is the consumer's
         try:
@@ -374,10 +393,19 @@ class EdgeTransport:
             self.stats["recvs"] += 1
             return out
         finally:
-            self.stats["read_wait_s"] += (time.perf_counter() - t0
-                                          if dt is None else dt)
+            self._note_wait(time.perf_counter() - t0 if dt is None else dt)
 
     # -- internals ----------------------------------------------------------
+    def _note_wait(self, dt: float) -> None:
+        """Book one read's wait: the transport's counter, the
+        ``channel_wait`` bucket of a running step ledger, and the edge's
+        latency in the health plane's tracker (best effort)."""
+        self.stats["read_wait_s"] += dt
+        durations.note_duration("channel_wait", dt)
+        try:
+            note_edge_latency(self.edge or self.channel.name, dt)
+        except Exception:  # noqa: BLE001 — evidence stays best-effort
+            pass
     def _landing_device(self) -> torch.device:
         """The reader's device; a CUDA reader page-locks its mapping of the
         segment on first use, so device frames land by DMA from shm."""
@@ -403,6 +431,18 @@ class EdgeTransport:
         struct.pack_into("<Q", buf, 0, marker)
         serialization.write_parts(buf[_FRAME_HDR:], core, raw_bufs)
         self.channel.commit_write(_FRAME_HDR + total)
+        return total
+
+    def _write_frame_staged(self, value: Any,
+                            timeout: Optional[float]) -> int:
+        """A host frame built in a buffer of its own, then handed to the
+        native plane's ``write_bytes``."""
+        core, raw_bufs, total = serialization.serialize_parts(value)
+        out = bytearray(_FRAME_HDR + total)
+        struct.pack_into("<Q", out, 0, _MARK_HOST)
+        serialization.write_parts(memoryview(out)[_FRAME_HDR:], core,
+                                  raw_bufs)
+        self.channel.write_bytes(out, timeout)
         return total
 
     def _decode(self, view: memoryview) -> Any:
@@ -433,9 +473,12 @@ def _rebuild_transport(channel: Channel, tier: str, edge: str,
 def make_edge_transport(*, tier: str, edge: str = "",
                         buffer_size: int = 1 << 20,
                         num_readers: int = 1) -> EdgeTransport:
-    """Create the writer-side transport for one negotiated edge."""
+    """Create the writer-side transport for one negotiated edge, on a
+    channel of the Python data plane (``native=False``): device frames and
+    deferred-ack reads need direct access to the segment."""
     return EdgeTransport(Channel(buffer_size=buffer_size,
-                                 num_readers=num_readers), tier, edge)
+                                 num_readers=num_readers, native=False),
+                         tier, edge)
 
 
 def attach_edge_transport(transport: EdgeTransport, slot: int,

@@ -14,6 +14,12 @@ callable is built.
 The callable travels by reference, as a trainer's loop does (the card's
 machine has no cloudpickle): ``(module, qualname)`` of a top-level class
 or function, decorated with ``@serve.deployment`` or not.
+
+A deployment's constructor may start processes: process actors, and a
+compiled DAG over them that concurrent requests, each on a wire thread of
+its own, ``execute`` and ``get`` (the DAG's buffered results keep them
+apart).  They fork from the worker zygote the replica inherited and end
+with the replica, killed or not: their pipe to it closes.
 """
 
 from __future__ import annotations
@@ -171,7 +177,14 @@ class Replica:
         serve_context._set_replica_context(
             ReplicaContext(deployment_name, replica_id))
         if isinstance(target, type):
-            self._callable = target(*init_args, **init_kwargs)
+            from ray_tpu_torch.train.worker_group import allow_children
+
+            # the replica is a daemonic process: a constructor that starts
+            # processes of its own (actors, a compiled DAG's stages) starts
+            # them inside this block; they die with the replica, killed or
+            # not, when their pipe to it closes
+            with allow_children():
+                self._callable = target(*init_args, **init_kwargs)
         else:
             # plain function deployment: calls go straight to it
             self._callable = target

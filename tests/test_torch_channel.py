@@ -11,8 +11,10 @@ checks them for the reference.
 
 import dataclasses
 import hashlib
+import json
 import multiprocessing
 import os
+import time
 
 import numpy as np
 import pytest
@@ -298,13 +300,23 @@ def test_tensors_land_on_the_card_unless_the_cpu_is_asked_for():
         ch.destroy()
 
 
-def test_native_mode_segment_is_refused():
-    ch = tchan.Channel(buffer_size=64)
+def test_native_mode_segment_is_refused(monkeypatch):
+    """A process that cannot load the native plane refuses a native-mode
+    segment on a weakly-ordered host (its plain stores would race the
+    native peers' acquire loads); under total store order it joins on the
+    Python plane."""
+    ch = tchan.Channel(buffer_size=64, native=False)
     try:
         word = int.from_bytes(ch._seg.buf[16:24], "little")
         ch._seg.buf[16:24] = (word | tchan._NATIVE_BIT).to_bytes(8, "little")
+        monkeypatch.setattr(tchan, "_native_lib", lambda: None)
+        monkeypatch.setattr(tchan, "_TSO", False)
         with pytest.raises(RuntimeError, match="native data plane"):
             tchan.Channel(ch.name, buffer_size=64, _create=False)
+        monkeypatch.setattr(tchan, "_TSO", True)
+        rd = tchan.Channel(ch.name, buffer_size=64, _create=False)
+        assert rd._nh is None and rd.supports_zero_copy
+        rd.detach()
     finally:
         ch.destroy()
 
@@ -406,6 +418,86 @@ def test_read_borrowed_consumes_in_scope(emulate):
     finally:
         rd.channel.detach()
         tr.destroy()
+
+
+def _hooked(package):
+    """Count one package's ``channel_wait`` notes from now on, its edge
+    table cleared: returns (notes, stop, snapshot)."""
+    if package == "reference":
+        from ray_tpu._private import tracing as sinks
+        from ray_tpu.util import health
+    else:
+        from ray_tpu_torch._private import durations as sinks
+        from ray_tpu_torch.util import health
+    notes = []
+    token = sinks.register_duration_sink(
+        lambda bucket, dt: notes.append(dt) if bucket == "channel_wait"
+        else None)
+    health.reset_edge_latency()
+    return (notes, lambda: sinks.unregister_duration_sink(token),
+            health.edge_latency_snapshot)
+
+
+def test_read_borrowed_books_acquire_and_decode_only():
+    """A borrowed read books its acquire and decode only, in both
+    packages: a consumer that sleeps 0.3 s adds nothing to the
+    transport's wait, its ``channel_wait`` note or its edge's latency,
+    while ``read`` books one note per read on its edge."""
+    booked = {}
+    for package, mod in (("reference", jtr), ("port", ttr)):
+        tr = mod.make_edge_transport(tier=mod.TIER_HOST, buffer_size=1 << 16,
+                                     edge="s0->s1")
+        rd = (jtr.attach_edge_transport(tr, 0) if package == "reference"
+              else ttr.attach_edge_transport(tr, 0, device="cpu"))
+        notes, stop, snapshot = _hooked(package)
+        try:
+            tr.write({"n": 1}, timeout=5)
+            t0 = time.perf_counter()
+            got = rd.read_borrowed(lambda v: time.sleep(0.3) or v["n"],
+                                   timeout=5)
+            wall = time.perf_counter() - t0
+            tr.write({"n": 2}, timeout=5)
+            assert rd.read(timeout=5)["n"] == 2
+            edges = snapshot()
+        finally:
+            stop()
+            rd.channel.detach()
+            tr.destroy()
+        assert got == 1 and wall >= 0.3
+        assert len(notes) == 2 and notes[0] < 0.2, (package, notes)
+        assert rd.stats["read_wait_s"] == pytest.approx(sum(notes))
+        booked[package] = {e: st["count"] for e, st in edges.items()}
+    assert booked["port"] == booked["reference"] == {"s0->s1": 2}
+
+
+def test_step_record_of_a_reader_carries_edges(monkeypatch):
+    """A step that reads a channel books the read to ``channel_wait``, and
+    the step record the ledger publishes to the run's KV carries the
+    edge's latency under ``edges`` (the health plane's input)."""
+    from ray_tpu_torch._private import kv as kv_mod
+    from ray_tpu_torch.train.session import StepLedger
+    from ray_tpu_torch.util import health
+
+    store = kv_mod.host()
+    monkeypatch.setenv(kv_mod.ENV_KV, store.addr)
+    health.reset_edge_latency()
+    tr = ttr.make_edge_transport(tier=ttr.TIER_HOST, buffer_size=1 << 12,
+                                 edge="stage0->stage1")
+    rd = ttr.attach_edge_transport(tr, 0, device="cpu")
+    try:
+        ledger = StepLedger(group_name="edges", rank=3)
+        with ledger.step():
+            tr.write(7, timeout=5)
+            assert rd.read(timeout=5) == 7
+        buckets = ledger.last_breakdown()["buckets"]
+        rec = json.loads(store.get("train/step_breakdown/edges/3"))
+    finally:
+        health.reset_edge_latency()
+        rd.channel.detach()
+        tr.destroy()
+    assert buckets["channel_wait"] == pytest.approx(rd.stats["read_wait_s"])
+    assert rec["edges"]["stage0->stage1"]["count"] == 1
+    assert rec["last"]["buckets"]["channel_wait"] == buckets["channel_wait"]
 
 
 def test_device_decode_failure_degrades_to_host(emulate, monkeypatch):

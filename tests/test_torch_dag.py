@@ -866,6 +866,104 @@ class TestActorDeathMidExecute:
             compiled.teardown(timeout=10)
 
 
+class TestEdgeHooks:
+    """Every channel read books its wait to the ``channel_wait`` bucket
+    and to the health plane's edge-latency table, in the actor processes
+    (exec loops) and in the driver (output reads), as the reference's
+    transport does (``ray_tpu/experimental/channel/transport.py:372-448``).
+    """
+
+    EXECS = 5
+
+    def test_channel_wait_and_edges_match_the_reference(self, pool,
+                                                        ray_start):
+        import ray_tpu
+        from ray_tpu._private import tracing as jtracing
+        from ray_tpu.dag import InputNode as JInputNode
+        from ray_tpu.util import health as jhealth
+        from ray_tpu_torch._private import durations
+        from ray_tpu_torch.util import health as thealth
+
+        @ray_tpu.remote
+        class JAdder:
+            def __init__(self, inc):
+                self.inc = inc
+
+            def add(self, x):
+                return x + self.inc
+
+        def j_arm(instance):
+            from ray_tpu._private import tracing
+            from ray_tpu.util import health
+
+            notes = []
+            instance._hook_notes = notes
+            instance._hook_token = tracing.register_duration_sink(
+                lambda bucket, dt: notes.append(dt)
+                if bucket == "channel_wait" else None)
+            health.reset_edge_latency()
+            return True
+
+        def j_read(instance):
+            from ray_tpu._private import tracing
+            from ray_tpu.util import health
+
+            tracing.unregister_duration_sink(instance._hook_token)
+            return {"channel_wait": len(instance._hook_notes),
+                    "edges": health.edge_latency_snapshot()}
+
+        def run(handles, input_node, arm, read, sink, health, get):
+            """The two-actor chain, EXECS executions; the notes and edges
+            of each actor and of the driver, actor ids named a and b."""
+            a, b = handles
+            names = {a._actor_id.hex()[:6]: "a", b._actor_id.hex()[:6]: "b"}
+            with input_node() as inp:
+                dag = b.add.bind(a.add.bind(inp))
+            compiled = dag.experimental_compile()
+            notes = []
+            token = sink.register_duration_sink(
+                lambda bucket, dt: notes.append(dt)
+                if bucket == "channel_wait" else None)
+            try:
+                health.reset_edge_latency()
+                get([h._remote_call.remote(arm) for h in handles])
+                outs = [compiled.execute(i).get(timeout=30)
+                        for i in range(self.EXECS)]
+                got = dict(zip("ab", get(
+                    [h._remote_call.remote(read) for h in handles])))
+                got["driver"] = {"channel_wait": len(notes),
+                                 "edges": health.edge_latency_snapshot()}
+            finally:
+                sink.unregister_duration_sink(token)
+                compiled.teardown()
+
+            def rename(edge):
+                for hexid, name in names.items():
+                    edge = edge.replace(hexid, name)
+                return edge
+
+            return outs, {who: {"channel_wait": g["channel_wait"],
+                                "edges": {rename(e): st["count"]
+                                          for e, st in g["edges"].items()}}
+                          for who, g in got.items()}
+
+        jhandles = [JAdder.remote(1), JAdder.remote(2)]
+        ref = run(jhandles, JInputNode, j_arm, j_read, jtracing, jhealth,
+                  lambda refs: ray_tpu.get(refs, timeout=60))
+        port = run(_adders(pool, 1, 2), InputNode, A.arm_channel_hooks,
+                   A.read_channel_hooks, durations, thealth,
+                   lambda refs: actor.get(refs, timeout=60))
+        for h in jhandles:
+            ray_tpu.kill(h)
+        assert port == ref
+        n = self.EXECS
+        assert port[0] == [i + 3 for i in range(n)]
+        assert port[1] == {
+            "a": {"channel_wait": n, "edges": {"input->@a": n}},
+            "b": {"channel_wait": n, "edges": {"add@a->@b": n}},
+            "driver": {"channel_wait": n, "edges": {"add@b->driver": n}}}
+
+
 class TestProcessActors:
     """The port's actor: a process per instance, calls in order, death by
     name, ref arguments resolved before the call."""

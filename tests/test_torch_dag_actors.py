@@ -225,3 +225,30 @@ def in_group(instance, name):
     from ray_tpu_torch.util import collective as col
 
     return col.is_group_initialized(name)
+
+
+def arm_channel_hooks(instance):
+    """``_remote_call`` body: count this process's ``channel_wait`` notes
+    from now on (a duration sink, as a running step ledger registers one)
+    and clear the health plane's edge-latency table."""
+    from ray_tpu_torch._private import durations
+    from ray_tpu_torch.util import health
+
+    notes = []
+    instance._hook_notes = notes
+    instance._hook_token = durations.register_duration_sink(
+        lambda bucket, dt: notes.append(dt) if bucket == "channel_wait"
+        else None)
+    health.reset_edge_latency()
+    return True
+
+
+def read_channel_hooks(instance):
+    """``_remote_call`` body: the ``channel_wait`` notes counted since
+    ``arm_channel_hooks`` (the sink dropped) and the edge-latency table."""
+    from ray_tpu_torch._private import durations
+    from ray_tpu_torch.util import health
+
+    durations.unregister_duration_sink(instance._hook_token)
+    return {"channel_wait": len(instance._hook_notes),
+            "edges": health.edge_latency_snapshot()}

@@ -240,3 +240,40 @@ def test_mesh_group_import_leaves_jax_and_reference_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+DEVICE_TIER_MODULES = (
+    "ray_tpu_torch._native", "ray_tpu_torch._native.build",
+    "ray_tpu_torch.experimental.channel.shared_memory_channel",
+    "ray_tpu_torch.experimental.channel.transport",
+    "ray_tpu_torch.workflow", "ray_tpu_torch.workflow.api",
+    "ray_tpu_torch.serve.replica")
+
+
+def test_device_tier_sources_are_covered():
+    """The native data plane's build, the workflow package and the
+    channel plane are among the sources checked for jax and ``ray_tpu``
+    imports, and the native plane's C++ source is the port's own."""
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    want = {m.replace(".", "/") + ".py" for m in DEVICE_TIER_MODULES
+            if not m.endswith("_native") and not m.endswith("workflow")}
+    want |= {"ray_tpu_torch/_native/__init__.py",
+             "ray_tpu_torch/workflow/__init__.py"}
+    assert want <= rel, sorted(want - rel)
+    assert os.path.exists(os.path.join(REPO, "ray_tpu_torch", "_native",
+                                       "channel.cc"))
+
+
+def test_device_tier_import_leaves_jax_and_reference_unloaded():
+    code = (
+        "import sys\n"
+        f"import {', '.join(DEVICE_TIER_MODULES)}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ray_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -22,7 +22,7 @@ import urllib.request
 import pytest
 import torch
 
-from ray_tpu_torch import serve
+from ray_tpu_torch import actor, serve
 from ray_tpu_torch.exceptions import (ActorDiedError, BackPressureError,
                                       DeadlineExceededError)
 from ray_tpu_torch.serve.controller import get_controller
@@ -100,6 +100,75 @@ class FakeDecode:
         yield {"done": True, "num_generated_tokens": self.chunks,
                "generated_text": "".join(f"t{i}"
                                          for i in range(self.chunks))}
+
+
+@actor.remote
+class Inc:
+    """The DAG-backed replica's actor (its process imports this module)."""
+
+    def bump(self, x):
+        time.sleep(0.02)  # an execution long enough for requests to meet
+        return x + 1
+
+    def pid(self):
+        return os.getpid()
+
+
+@serve.deployment(max_ongoing_requests=4)
+class DagServer:
+    """The reference's ``DagServer`` (``tests/test_serve.py:246-275``): its
+    constructor starts an actor process and compiles a DAG over it; each
+    request, on a wire thread of its own, executes and gets."""
+
+    def __init__(self):
+        from ray_tpu_torch.dag import InputNode
+
+        torch.set_num_threads(1)
+        self._actor = Inc.options(device="cpu").remote()
+        with InputNode() as inp:
+            dag = self._actor.bump.bind(inp)
+        self._dag = dag.experimental_compile()
+        self._in_flight = 0
+        self._max_in_flight = 0
+        self._lock = threading.Lock()
+
+    def __call__(self, x):
+        with self._lock:
+            self._in_flight += 1
+            self._max_in_flight = max(self._max_in_flight, self._in_flight)
+        try:
+            return self._dag.execute(x).get(timeout=30)
+        finally:
+            with self._lock:
+                self._in_flight -= 1
+
+    def peak(self, _x):
+        return self._max_in_flight
+
+    def actor_pid(self, _x):
+        return actor.get(self._actor.pid.remote(), timeout=30)
+
+
+def _child_exit(code):
+    os._exit(code)
+
+
+@serve.deployment
+class Spawner:
+    """A constructor that starts a plain child process of its own (not
+    through ``actor.remote``) in the daemonic replica."""
+
+    def __init__(self):
+        from ray_tpu_torch._private import worker_zygote
+
+        proc = worker_zygote.get_context().Process(target=_child_exit,
+                                                   args=(7,))
+        proc.start()
+        proc.join(60)
+        self.exitcode = proc.exitcode
+
+    def __call__(self, _body):
+        return self.exitcode
 
 
 def _replicas(name):
@@ -360,6 +429,86 @@ def test_replica_death_fails_pending_call_and_restarts(serving):
     assert victim.pid not in {r.pid for r in reps}
     outs = [h.remote({"i": i}).result(timeout=30) for i in range(10)]
     assert all(o["pid"] != victim.pid for o in outs)
+
+
+def _parent_pid(pid):
+    with open(f"/proc/{pid}/stat") as f:
+        return int(f.read().rsplit(")", 1)[1].split()[1])
+
+
+def _wait_gone(pid, timeout):
+    """True once ``pid`` has exited (or is a zombie) within ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    return True
+        except OSError:
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def test_dag_backed_replica_overlapping_requests(serving):
+    """A replica drives a compiled DAG over an actor it started; eight
+    concurrent requests (through the handle, and one through the HTTP
+    proxy) overlap DAG executions.  The actor forks from the zygote the
+    replica inherited, and dies with the replica when the replica is
+    killed, and again when its replacement is deleted.  A watchdog kills
+    the replicas and their actors if the test outlives its budget."""
+    pids = set()
+
+    def kill_all():
+        for p in pids:
+            try:
+                os.kill(p, signal.SIGKILL)
+            except OSError:
+                pass
+
+    watchdog = threading.Timer(120.0, kill_all)
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        handle = serve.run(DagServer.bind(), name="dag", route_prefix="/dag")
+        replica = _replicas("DagServer")[0]
+        pids.add(replica.pid)
+        apid = handle.actor_pid.remote(None).result(timeout=30)
+        pids.add(apid)
+        results = [handle.remote(i) for i in range(8)]
+        assert sorted(r.result(timeout=60) for r in results) == \
+            [i + 1 for i in range(8)]
+        # at least two requests were inside __call__ at once, overlapping
+        # DAG executions
+        assert handle.peak.remote(None).result(timeout=30) >= 2
+        assert json.loads(_post(serving, "/dag", 41).read()) == 42
+        # the actor is a sibling of the replica: both forked by the zygote
+        assert _parent_pid(apid) == _parent_pid(replica.pid)
+        os.kill(replica.pid, signal.SIGKILL)
+        assert _wait_gone(apid, 10.0), "the actor outlived its replica"
+        # the controller starts a replacement with an actor of its own
+        fresh = _wait_replicas("DagServer", 1, exclude=[replica.replica_id])
+        pids.add(fresh[0].pid)
+        apid2 = handle.actor_pid.remote(None).result(timeout=30)
+        pids.add(apid2)
+        assert apid2 != apid
+        assert handle.remote(1).result(timeout=30) == 2
+    finally:
+        serve.delete("DagServer")
+        watchdog.cancel()
+    assert _wait_gone(apid2, 10.0), "the actor outlived its deleted replica"
+
+
+def test_replica_constructor_may_start_processes(serving):
+    """A replica is a daemonic process, which ``multiprocessing`` refuses
+    children; the replica builds its callable where children are
+    allowed, so a constructor may start processes of its own."""
+    try:
+        handle = serve.run(Spawner.bind(), name="spawner",
+                           route_prefix="/spawner")
+        assert handle.remote(None).result(timeout=30) == 7
+    finally:
+        serve.delete("Spawner")
 
 
 # ---------------------------------------------------------------------------
